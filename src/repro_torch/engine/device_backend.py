@@ -44,6 +44,7 @@ from ..core.device_index import (
     build_delta_image,
     build_device_image,
     capture_delta_baseline,
+    query_step,
     with_global_stats,
 )
 from ..kernels import registry
@@ -61,11 +62,14 @@ class ResidentImageManager:
 
     ``frozen_uploads`` bumps only at freeze (collation) time while
     ``batches_served`` bumps per fused launch — steady-state serving shows
-    many batches per upload.
+    many batches per upload.  ``decode_fn`` is the block decode of the
+    split path (``DeviceBackend(use_fused=False)``); None takes the
+    ``dvbyte_decode`` op.
     """
 
-    def __init__(self, engine):
+    def __init__(self, engine, decode_fn=None):
         self.engine = engine
+        self.decode_fn = decode_fn
         self._frozen_raw: DeviceIndex | None = None   # as built at freeze
         self._frozen_nblk: np.ndarray | None = None   # host copy, per term
         self._baseline = None                          # DeltaBaseline
@@ -77,6 +81,8 @@ class ResidentImageManager:
         self._avg_stat = None
         self._synced_version = -1
         self._nblk_np = None            # host (frozen, delta) chain sizes
+        self._frozen_mb = 1             # split path's chain cap, frozen
+        self._delta_mb = 1              # split path's chain cap, delta
         self._doc_cap = 1024
         self._vocab_cap = 64
         self.epoch = 0                  # freeze epochs seen
@@ -95,6 +101,8 @@ class ResidentImageManager:
         self._frozen_raw = build_device_image(eng.index, eng.vocab,
                                               device=eng.device)
         self._frozen_nblk = self._frozen_raw.term_nblk.cpu().numpy()
+        self._frozen_mb = _pow2(int(self._frozen_nblk.max())
+                                if len(self._frozen_nblk) else 1)
         self._baseline = capture_delta_baseline(eng.index, eng.vocab)
         self._frozen = None        # stale metadata: rebuild from _frozen_raw
         self._synced_version = -1  # force a refresh before the next query
@@ -176,6 +184,8 @@ class ResidentImageManager:
         frozen_nblk = np.zeros(vocab_cap, np.int32)
         frozen_nblk[:len(self._frozen_nblk)] = self._frozen_nblk
         self._nblk_np = (frozen_nblk, delta.term_nblk.cpu().numpy())
+        self._delta_mb = _pow2(int(self._nblk_np[1].max())
+                               if len(self._nblk_np[1]) else 1)
         dl = np.zeros(doc_cap + 1, np.float32)
         dl[1:N + 1] = eng.doclens_array()[1:N + 1]
         self._doclens = torch.from_numpy(dl).to(dev)
@@ -212,6 +222,13 @@ class ResidentImageManager:
     def images(self):
         """The resident (frozen, delta) pair the fused op merges."""
         return (self._frozen, self._delta)
+
+    @property
+    def max_blocks(self) -> tuple:
+        """Per-image chain caps of the split path, aligned with
+        :attr:`images`: the longest chain, rounded up to a power of two, so
+        the delta keeps its own small cap."""
+        return (self._frozen_mb, self._delta_mb)
 
 
 def pack_queries(engine, resident: ResidentImageManager,
@@ -257,16 +274,32 @@ def pack_queries(engine, resident: ResidentImageManager,
             tuple(caps))
 
 
+def serve_groups(resident: ResidentImageManager, queries: list[Query],
+                 run) -> list[QueryResult]:
+    """Refresh the resident images, then answer ``queries`` one (mode, k)
+    group at a time: ``run(batch, mode, k)`` returns the batch's results in
+    order.  Positional modes need a word-level index and are refused."""
+    if any(q.mode in POSITIONAL_MODES for q in queries):
+        raise UnsupportedQueryError(
+            "the device images serve no positional query mode")
+    resident.refresh()
+    out: list[QueryResult | None] = [None] * len(queries)
+    groups: dict[tuple[str, int], list[int]] = {}
+    for i, q in enumerate(queries):
+        groups.setdefault((q.mode, q.k), []).append(i)
+    for (mode, k), idxs in groups.items():
+        for i, r in zip(idxs, run([queries[i] for i in idxs], mode, k)):
+            out[i] = r
+    return out  # type: ignore[return-value]
+
+
 def fused_execute(engine, resident: ResidentImageManager,
                   batch: list[Query], mode: str, k: int, *,
                   name: str = "device") -> list[QueryResult]:
     """Answer one (mode, k) query group with a single fused launch over the
     resident images."""
     N = engine.index.num_docs
-    results = [QueryResult(np.zeros(0, np.int64),
-                           None if mode == "conjunctive"
-                           else np.zeros(0, np.float64), name)
-               for _ in batch]
+    results = [QueryResult.empty(mode, name) for _ in batch]
     live, qt, qm, caps = pack_queries(engine, resident, batch, mode)
     if not live:
         return results
@@ -292,34 +325,78 @@ def fused_execute(engine, resident: ResidentImageManager,
 
 
 class DeviceBackend(Backend):
-    """The fused device path: one ``fused_query`` launch per (mode, k)
-    group over the engine's resident frozen+delta images."""
+    """The device path over the engine's resident frozen+delta images.
+
+    ``use_fused=True`` (the default) answers each (mode, k) group with one
+    ``fused_query`` launch over both images.  ``use_fused=False`` takes the
+    split path: one :func:`~repro_torch.core.device_index.query_step` per
+    image (its block decode is the ``dvbyte_decode`` kernel on the card),
+    merged on the host — the counterpart of the reference's legacy path."""
 
     name = "device"
 
-    def __init__(self, engine, resident: ResidentImageManager):
+    def __init__(self, engine, resident: ResidentImageManager,
+                 use_fused: bool = True):
         super().__init__(engine)
         self.resident = resident
+        self.use_fused = use_fused
 
     def execute(self, query: Query) -> QueryResult:
         return self.execute_many([query])[0]
 
     def execute_many(self, queries: list[Query]) -> list[QueryResult]:
-        if any(q.mode in POSITIONAL_MODES for q in queries):
-            raise UnsupportedQueryError(
-                "DeviceBackend does not implement positional query modes")
-        self.resident.refresh()
-        out: list[QueryResult | None] = [None] * len(queries)
-        groups: dict[tuple[str, int], list[int]] = {}
-        for i, q in enumerate(queries):
-            groups.setdefault((q.mode, q.k), []).append(i)
-        for (mode, k), idxs in groups.items():
-            res = fused_execute(self.engine, self.resident,
-                                [queries[i] for i in idxs], mode, k,
-                                name=self.name)
-            for i, r in zip(idxs, res):
-                out[i] = r
-        return out  # type: ignore[return-value]
+        run = self._run_group_fused if self.use_fused else \
+            self._run_group_split
+        return serve_groups(self.resident, queries, run)
+
+    def _run_group_fused(self, batch: list[Query], mode: str,
+                         k: int) -> list[QueryResult]:
+        return fused_execute(self.engine, self.resident, batch, mode, k,
+                             name=self.name)
+
+    def _run_group_split(self, batch: list[Query], mode: str,
+                         k: int) -> list[QueryResult]:
+        """One ``query_step`` per image, merged on the host."""
+        eng = self.engine
+        mgr = self.resident
+        if eng.index.tombstones:
+            # each image's top k is cut BEFORE any tombstone mask could
+            # apply, so a dead doc could evict a live one from an image's
+            # k; the fused path masks inside the accumulator — delegate to
+            # it whenever deletes are outstanding
+            return fused_execute(eng, mgr, batch, mode, k, name=self.name)
+        N = eng.index.num_docs
+        results = [QueryResult.empty(mode, self.name) for _ in batch]
+        live, qt, qm, _caps = pack_queries(eng, mgr, batch, mode)
+        if not live:
+            return results
+        kw = dict(decode_fn=mgr.decode_fn, n_stat=mgr._n_stat,
+                  avg_stat=mgr._avg_stat)
+        if mode == "conjunctive":
+            mf, md = (query_step(img, qt, qm, k=1, mode="conjunctive",
+                                 max_blocks=mb, **kw)[0]
+                      for img, mb in zip(mgr.images, mgr.max_blocks))
+            matches = (mf | md).cpu().numpy()
+            for row, i in enumerate(live):
+                d = np.flatnonzero(matches[row]) + 1
+                results[i] = QueryResult(d[d <= N].astype(np.int64), None,
+                                         self.name)
+            return results
+        qmode = "bm25" if mode == "bm25" else "ranked"
+        dl = mgr._doclens if mode == "bm25" else None
+        parts = [query_step(img, qt, qm, k=k, mode=qmode, max_blocks=mb,
+                            doclens=dl, **kw)
+                 for img, mb in zip(mgr.images, mgr.max_blocks)]
+        alld = torch.cat([p[0] for p in parts], dim=1).cpu().numpy()
+        alls = torch.cat([p[1] for p in parts], dim=1).cpu().numpy()
+        for row, i in enumerate(live):
+            d, s = alld[row], alls[row]
+            keep = (s > 0) & (d > 0)
+            d, s = d[keep], s[keep]
+            order = np.argsort(-s, kind="stable")[:k]
+            results[i] = QueryResult(d[order].astype(np.int64),
+                                     s[order].astype(np.float64), self.name)
+        return results
 
 
 def _empty_image(engine) -> DeviceIndex:

@@ -1,11 +1,12 @@
-"""The Engine: one ingest+query front door over the host and device backends.
+"""The Engine: one ingest+query front door over the host, device and
+kernel backends.
 
 Owns the live :class:`~repro_torch.core.index.DynamicIndex`, the
 document-length array (BM25 state the paper places outside the core index,
 §3.6), the term-id vocabulary shared with the device images, and the
-planner.  The device images live on ``Engine.device``: the card by default,
-the CPU when the caller asks for it (then the fused op runs its plain
-PyTorch version).
+planner.  The device images and the kernel backend's tensors live on
+``Engine.device``: the card by default, the CPU when the caller asks for it
+(then every op runs its plain PyTorch version).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from ..core.device_index import resolve_device
 from ..core.index import DynamicIndex, group_occurrences
 from ..core.prepare import prepare_batch
 from ..core.query import CollectionStats, TermStats
-from .backends import HostBackend, UnsupportedQueryError
+from .backends import HostBackend, KernelBackend, UnsupportedQueryError
 from .device_backend import DeviceBackend, ResidentImageManager
 from .planner import Planner, PlannerConfig
 from .types import EngineStats, Query, QueryResult
@@ -46,7 +47,7 @@ class _LiveFtMap:
 
 
 class Engine:
-    """Planner/executor over the host and device backends.
+    """Planner/executor over the host, device and kernel backends.
 
     Parameters
     ----------
@@ -59,9 +60,13 @@ class Engine:
         fragmentation-threshold compaction for the device refresh itself
         (see ``device_backend``); None disables.
     device:
-        where the device images live and the fused op runs: None means
+        where the device images live and the ops run: None means
         ``torch.device("cuda")`` (raises if there is no CUDA device); pass
-        ``"cpu"`` to run the plain version on the CPU.
+        ``"cpu"`` to run the plain versions on the CPU.
+    decode_fn:
+        the block decode of the device backend's split path
+        (``DeviceBackend(use_fused=False)``); None takes the
+        ``dvbyte_decode`` op.
     """
 
     def __init__(self, B: int = 64, growth: str = "const",
@@ -71,7 +76,7 @@ class Engine:
                  force_backend: str | None = None,
                  delta_compact_frac: float | None = 0.25,
                  delta_compact_min_blocks: int = 512,
-                 device=None):
+                 device=None, decode_fn=None):
         self.device = resolve_device(device)
         self.index = index if index is not None else DynamicIndex(
             B=B, growth=growth, F=F, word_level=word_level)
@@ -96,10 +101,14 @@ class Engine:
         self._deleted_tokens = 0          # Σ doclen over tombstoned docs
         self._group_scratch: list = []    # per-batch grouping scratch
         self.stats_counters = EngineStats()
-        self.resident = ResidentImageManager(self)
+        # one resident image manager shared by the device and kernel
+        # backends: a mixed stream pays for at most one frozen upload and
+        # one delta rebuild per engine version
+        self.resident = ResidentImageManager(self, decode_fn=decode_fn)
         self.backends = {
             "host": HostBackend(self),
             "device": DeviceBackend(self, self.resident),
+            "kernel": KernelBackend(self, resident=self.resident),
         }
         if index is not None:
             self._adopt_existing()
@@ -193,6 +202,13 @@ class Engine:
     @property
     def device_capable(self) -> bool:
         return self.index.store.const_mode and not self.index.word_level
+
+    @property
+    def kernel_capable(self) -> bool:
+        # the kernel backend decodes postings on the host, so any growth
+        # policy works; word-level lists (w-gap payloads, repeated docids)
+        # do not fit the kernels
+        return not self.index.word_level
 
     # ------------------------------------------------------------------
     # ingest
@@ -375,7 +391,8 @@ class Engine:
                      if (tid := self.term_id(t)) is not None else TermStats()
                      for t in q.terms]
             plans.append(self.planner.plan(
-                q, len(queries), stats, device_capable=self.device_capable))
+                q, len(queries), stats, device_capable=self.device_capable,
+                kernel_capable=self.kernel_capable))
         out: list[QueryResult | None] = [None] * len(queries)
         by_backend: dict[str, list[int]] = {}
         for i, p in enumerate(plans):

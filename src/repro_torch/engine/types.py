@@ -17,7 +17,7 @@ MODES = ("conjunctive", "ranked_tfidf", "bm25", "phrase", "proximity",
 POSITIONAL_MODES = ("phrase", "proximity", "bm25_prox")
 
 #: Backends a query may force via ``Query.backend``.
-BACKENDS = ("host", "device")
+BACKENDS = ("host", "device", "kernel")
 
 
 @dataclass(frozen=True)
@@ -74,6 +74,13 @@ class QueryResult:
 
     def __len__(self) -> int:
         return len(self.docids)
+
+    @classmethod
+    def empty(cls, mode: str, backend: str) -> "QueryResult":
+        """No match: empty docids, and empty scores for a ranked mode."""
+        return cls(np.zeros(0, np.int64),
+                   None if mode == "conjunctive" else np.zeros(0, np.float64),
+                   backend)
 
 
 from ..core.query import CollectionStats  # noqa: E402  (re-export: the

@@ -24,7 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel name -> its CUDA source
 SOURCES = {
-    "fused_query": KERNELS_DIR / "fused_query" / "csrc" / "fused_query.cu",
+    name: KERNELS_DIR / name / "csrc" / f"{name}.cu"
+    for name in ("fused_query", "intersect", "topk_score", "dvbyte_decode")
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

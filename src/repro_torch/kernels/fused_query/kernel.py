@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from .. import build
+from ..cuda_args import check, raise_on_error, require_cuda
 
 #: kernel launches made through :func:`fused_query_kernel`
 launches = 0
@@ -38,18 +39,6 @@ def _lib():
     return fn
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def fused_query_kernel(parts, nterms, doclens, bm25_norm, *, mode: str,
                        k: int, F: int, cap: int, alive=None):
     """Launch the fused kernel; returns what ``ref.fused_tile`` returns."""
@@ -58,10 +47,7 @@ def fused_query_kernel(parts, nterms, doclens, bm25_norm, *, mode: str,
         raise ValueError(f"unsupported fused mode {mode!r}")
     if not 1 <= len(parts) <= 2:
         raise ValueError("the kernel takes one or two image parts")
-    device = parts[0][0].device
-    if device.type != "cuda":
-        raise ValueError(f"fused_query_kernel needs CUDA tensors, got "
-                         f"{device}")
+    device = require_cuda(parts[0][0], "fused_query_kernel")
     Q, _, B = parts[0][0].shape
     ptrs, pbs = [], []
     for pi, part in enumerate(parts):
@@ -71,14 +57,14 @@ def fused_query_kernel(parts, nterms, doclens, bm25_norm, *, mode: str,
         PB = part[0].shape[1]
         for j, (t, dt) in enumerate(zip(part, _PART_DTYPES)):
             shape = (Q, PB, B) if j == 0 else (Q, PB)
-            _check(t, f"parts[{pi}][{j}]", dt, shape, device)
+            check(t, f"parts[{pi}][{j}]", dt, shape, device)
             ptrs.append(t.data_ptr())
         pbs.append(PB)
-    _check(nterms, "nterms", torch.int32, (Q,), device)
-    _check(doclens, "doclens", torch.float32, None, device)
-    _check(bm25_norm, "bm25_norm", torch.float32, (2,), device)
+    check(nterms, "nterms", torch.int32, (Q,), device)
+    check(doclens, "doclens", torch.float32, None, device)
+    check(bm25_norm, "bm25_norm", torch.float32, (2,), device)
     if alive is not None:
-        _check(alive, "alive", torch.int32, ((cap + 1 + 31) // 32,), device)
+        check(alive, "alive", torch.int32, ((cap + 1 + 31) // 32,), device)
     kk = min(k, cap + 1)
     conj = mode == "conjunctive"
     acc = torch.empty((Q, cap + 1),
@@ -102,9 +88,7 @@ def fused_query_kernel(parts, nterms, doclens, bm25_norm, *, mode: str,
                 None if matches is None else matches.data_ptr(),
                 None if top_d is None else top_d.data_ptr(),
                 None if top_s is None else top_s.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_query kernel launch failed: CUDA error "
-                           f"{rc}")
+    raise_on_error(rc, "fused_query")
     launches += 1
     if conj:
         return matches

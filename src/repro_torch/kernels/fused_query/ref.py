@@ -4,10 +4,9 @@
 image *parts* (frozen, then delta), exactly what the CUDA kernel
 (``csrc/fused_query.cu``) computes:
 
-  1. Double-VByte decode of every packed chain block, with Algorithm 2's
-     escape pairing in closed form: a value is *consumed* (it completes its
-     predecessor's escape) iff the run of raw-escape values immediately
-     before it has odd length;
+  1. Double-VByte decode of every packed chain block
+     (``core.device_index.decode_blocks``, Algorithm 2's escape pairing in
+     closed form);
   2. docid reconstruction: in-block d-gap sums plus segmented sums of each
      block's leading b-gap along its term segment; frozen segments carry
      the ``dnum0 = -1`` sentinel (absolute chains), delta segments start
@@ -28,63 +27,10 @@ from __future__ import annotations
 
 import torch
 
+from ...core.device_index import _cumsum32, _shift_right, decode_blocks
+
 BM25_K1 = 0.9
 BM25_B = 0.4
-
-_I32_MIN = torch.iinfo(torch.int32).min
-
-
-def _shift_right(x: torch.Tensor, fill, dim: int = 1) -> torch.Tensor:
-    """Shift ``x`` right by one along ``dim``, filling the head."""
-    head = torch.full_like(x.narrow(dim, 0, 1), fill)
-    return torch.cat([head, x.narrow(dim, 0, x.shape[dim] - 1)], dim=dim)
-
-
-def _cumsum32(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """int32 prefix sum with int32 wrap-around (torch promotes to int64)."""
-    return torch.cumsum(x, dim=dim, dtype=torch.int32)
-
-
-def decode_blocks_parallel(blocks: torch.Tensor, start: torch.Tensor,
-                           end: torch.Tensor, F: int):
-    """(NB, B) uint8 blocks with [start, end) payload bounds → (g, f, valid),
-    each (NB, B): one potential value per byte position."""
-    b = blocks.to(torch.int32)
-    NB, B = b.shape
-    pos = torch.arange(B, dtype=torch.int32, device=b.device).expand(NB, B)
-    start = start.reshape(NB, 1)
-    end = end.reshape(NB, 1)
-    inside = (pos >= start) & (pos < end)
-    term = ((b & 0x80) == 0) & inside
-    prev_term = torch.cummax(torch.where(term, pos, -1), dim=1).values
-    code_start = torch.maximum(_shift_right(prev_term, -1) + 1, start)
-    pos_in_code = torch.clamp(pos - code_start, 0, 4)
-    payload = torch.where(inside, (b & 0x7F) << (7 * pos_in_code), 0)
-    csum = _cumsum32(payload, 1)
-    prev_csum = torch.cummax(torch.where(term, csum, _I32_MIN), dim=1).values
-    prev_csum = torch.clamp(_shift_right(prev_csum, 0), min=0)
-    value = torch.where(term, csum - prev_csum, 0)
-    is_value = term & (value > 0)
-    mod = value % F
-    # Algorithm 2 unfold, run-length-parity form
-    rank = _cumsum32(is_value.to(torch.int32), 1)
-    non_esc = is_value & (mod != 0)
-    last_ne = torch.cummax(torch.where(non_esc, rank, 0), dim=1).values
-    last_ne = torch.clamp(_shift_right(last_ne, 0), min=0)
-    consumed = is_value & (((rank - 1 - last_ne) & 1) == 1)
-    primary = is_value & ~consumed
-    g = torch.where(primary,
-                    torch.where(mod > 0, 1 + value // F, value // F), 0)
-    f = torch.where(primary & (mod > 0), mod, 0)
-    # a consumed value holds F + v - 1 and completes the escape of the
-    # nearest primary before it: patch from the nearest positive at-or-right
-    fpatch = torch.where(consumed, F + value - 1, 0)
-    nxt = torch.where(fpatch > 0, pos, B)
-    nxt = torch.flip(torch.cummin(torch.flip(nxt, [1]), dim=1).values, [1])
-    held = torch.where(
-        nxt < B, torch.gather(fpatch, 1, nxt.clamp(max=B - 1).long()), 0)
-    f = torch.where(primary & (f == 0), held, f)
-    return g, f, primary
 
 
 def _part_postings(part, F: int):
@@ -97,7 +43,7 @@ def _part_postings(part, F: int):
     """
     gat, start, end, seg, lastd0, dnum0, widf = part
     Q, PB, B = gat.shape
-    g, f, valid = decode_blocks_parallel(
+    g, f, valid = decode_blocks(
         gat.reshape(Q * PB, B), start.reshape(-1), end.reshape(-1), F)
     g = g.reshape(Q, PB, B)
     f = f.reshape(Q, PB, B)

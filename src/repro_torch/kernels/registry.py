@@ -14,10 +14,10 @@ import importlib
 from dataclasses import dataclass
 from typing import Callable
 
+from .build import SOURCES
+
 # kernel name -> module that registers it (lazy import target)
-_OPS_MODULES = {
-    "fused_query": "repro_torch.kernels.fused_query.ops",
-}
+_OPS_MODULES = {name: f"repro_torch.kernels.{name}.ops" for name in SOURCES}
 
 _REGISTRY: dict[str, "KernelSpec"] = {}
 

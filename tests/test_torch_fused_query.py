@@ -23,6 +23,7 @@ from repro.engine import Engine as JaxEngine
 from repro.kernels.fused_query import ops as jax_ops
 from repro.kernels.fused_query import ref as jax_ref
 from repro_torch.convert import image_from_arrays
+from repro_torch.core.device_index import decode_blocks
 from repro_torch.kernels.fused_query import ops as port_ops
 from repro_torch.kernels.fused_query import ref as port_ref
 
@@ -173,7 +174,7 @@ def test_packing_and_decode_match_jax_exactly(jax_state, mode):
         jg = jax_ref.decode_blocks_parallel(
             jnp.asarray(gat.reshape(-1, B)), jnp.asarray(start.reshape(-1)),
             jnp.asarray(end.reshape(-1)), img.F)
-        pg = port_ref.decode_blocks_parallel(
+        pg = decode_blocks(
             torch.from_numpy(gat.reshape(-1, B)),
             torch.from_numpy(start.reshape(-1)),
             torch.from_numpy(end.reshape(-1)), img.F)
