@@ -18,7 +18,9 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      ``topk_score`` (an empty input, docid 0 present, one and several
      segments) and ``dvbyte_decode`` (the small engine's gathered chain
      blocks: escapes at F = 4, heads with start > H, tails with end < B,
-     empty blocks), all exactly;
+     empty blocks), all exactly; ``retrieval_dot`` (q in 1, 8, 17; d in 30,
+     64, 256; n in 0, 333, 2,048; float32 and bf16 unit rows) within
+     ``DENSE_ATOL`` of its plain version;
   3. the Const main path: the first ``--docs`` documents (default
      ``CONST_DOCS``, the cut that keeps the whole run under about 900 s of
      its 1,200 s limit; 98,732 is the full stream) of the WSJ1-like stream
@@ -40,6 +42,20 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      one ``query_step`` per image, each decoding with the ``dvbyte_decode``
      kernel (6 launches) — held against the host backend; then the decode
      kernel is timed at the frozen image's shapes.
+
+     Then, on the same engine (frozen image, delta, deletes), the hybrid
+     retrieval path: the two-tower model at full width (two 2,000,384 x 256
+     float32 tables, towers 1024-512-256) on the card; two rounds of the
+     same 32 conjunctive queries through ``Engine.execute_many`` (stage 1,
+     the candidates, held against the host backend), each query's
+     candidates embedded and scored by the ``retrieval_dot`` kernel against
+     a seeded user profile (stage 2, top ``TOP``), with one fresh document
+     per query ingested between the rounds, which round 1 must find.  The
+     kernel is held against its plain version (``DENSE_ATOL``, reruns
+     bit-identical, top ``TOP`` equal up to ties), its launches must equal
+     the queries with candidates, and it is timed at the path's largest
+     candidate set and at the reference's retrieval_cand shape (1 x
+     1,000,448 x 256) beside its plain version and ``torch.mm``.
 
      Delta compaction is off so that every launch reads both images, the
      frozen 90 % and a delta of 10 % of the stream: that two-part launch
@@ -86,12 +102,18 @@ N_BATCHES = 2                  # query batches of 32 per mode on the main path
 REPS = 20                      # timed launches per mode
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 TRIANGLE_DOCS = 98_732         # Path A's stream: WSJ1-like, full scale
-CONST_DOCS = 79_872            # the Const path's stream, cut (full: 98,732):
-                               # 312 batches of 256, so Path A's engine
-                               # passes the same count at a batch boundary
+CONST_DOCS = 73_728            # the Const path's stream, cut (full: 98,732):
+                               # 288 batches of 256, so Path A's engine
+                               # passes the same count at a batch boundary;
+                               # it keeps the full stream's device shapes
+                               # (docid capacity 131,072, frozen chain cap
+                               # 4,096: ~2,240 blocks at the freeze)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 PARITY_RTOL = 1e-6
 HOST_RTOL = 1e-5
+DENSE_ATOL = 1e-6              # retrieval_dot vs its plain version on unit
+                               # rows: both sum float32 in other orders
+TOP = 10                       # the hybrid path's dense top k
 #: kernel -> the TPU kernel it replaces (file:line of the function that
 #: reaches pl.pallas_call in the JAX package)
 REPLACES = {
@@ -99,6 +121,7 @@ REPLACES = {
     "intersect": "src/repro/kernels/intersect/kernel.py:45",
     "topk_score": "src/repro/kernels/topk_score/kernel.py:48",
     "dvbyte_decode": "src/repro/kernels/dvbyte_decode/kernel.py:144",
+    "retrieval_dot": "src/repro/kernels/retrieval_dot/kernel.py:38",
 }
 
 
@@ -125,20 +148,23 @@ def card_line() -> str:
 # --------------------------------------------------------------------------
 
 
-def ranking_agrees(d_got, s_got, d_ref, s_ref, rtol: float) -> bool:
-    """Same length, scores within ``rtol``, and the same docids except for
-    order swaps inside runs of scores equal to ``rtol`` (the last run may
-    also hold different members of a tie that runs past the cut).  For
-    answers scored in different precisions; a kernel and its plain version
-    are held to :func:`compare_outputs` instead."""
+def ranking_agrees(d_got, s_got, d_ref, s_ref, rtol: float,
+                   atol: float = 0.0) -> bool:
+    """Same length, scores within ``rtol`` (plus ``atol``), and the same
+    docids except for order swaps inside runs of scores equal to that
+    tolerance (the last run may also hold different members of a tie that
+    runs past the cut).  For answers scored in different precisions or
+    orders; a fused kernel and its plain version are held to
+    :func:`compare_outputs` instead."""
     if len(d_got) != len(d_ref):
         return False
-    if not np.allclose(s_got, s_ref, rtol=rtol, atol=0):
+    if not np.allclose(s_got, s_ref, rtol=rtol, atol=atol):
         return False
     n, i = len(d_ref), 0
     while i < n:
         j = i + 1
-        while j < n and abs(s_ref[j] - s_ref[i]) <= rtol * abs(s_ref[i]):
+        while j < n and (abs(s_ref[j] - s_ref[i])
+                         <= atol + rtol * abs(s_ref[i])):
             j += 1
         if j < n and set(d_got[i:j].tolist()) != set(d_ref[i:j].tolist()):
             return False
@@ -317,6 +343,15 @@ def small_parity(eng, rng, names, probs) -> float:
     return err
 
 
+def unit_rows(g, rows: int, d: int, dev):
+    """(rows, d) float32 rows of norm 1 from numpy generator ``g``, on
+    ``dev``: the scale of two-tower embeddings."""
+    import torch
+    x = g.standard_normal((rows, d)).astype(np.float32)
+    x /= np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-6)
+    return torch.from_numpy(x).to(dev)
+
+
 def exact_and_repeatable(name, first, second, plain) -> float:
     """A kernel's two launches and its plain version, output by output:
     bit-identical, or fail.  Returns the largest absolute difference (0)."""
@@ -433,6 +468,38 @@ def term_kernel_parity(eng, rng, names, probs) -> dict:
             f"bit-identical, on {blocks.shape[0]} {label} blocks (F={F}: "
             f"{escapes} escapes, {heads} heads with start > H, {tails} tails "
             f"with end < B, {empty} empty)")
+
+    from repro_torch.kernels.retrieval_dot.ops import candidate_scores
+    from repro_torch.kernels.retrieval_dot.ref import retrieval_dot_ref
+    errs["retrieval_dot"] = 0.0
+    n_cases = 0
+    for qn in (1, 8, 17):
+        for d in (30, 64, 256):
+            for n in (0, 333, 2048):
+                qv, cv = (unit_rows(g, rows, d, dev) for rows in (qn, n))
+                for dt in (torch.float32, torch.bfloat16):
+                    qt, ct = qv.to(dt), cv.to(dt)
+                    first = candidate_scores(qt, ct)
+                    second = candidate_scores(qt, ct)
+                    plain = retrieval_dot_ref(qt, ct)
+                    torch.cuda.synchronize()
+                    label = f"q={qn} d={d} n={n} {dt}"
+                    if first.shape != (qn, n) or first.dtype != torch.float32:
+                        fail(f"retrieval_dot {label}: output "
+                             f"{tuple(first.shape)} {first.dtype}")
+                    if not bit_identical(first, second):
+                        fail(f"retrieval_dot {label}: a second launch is not "
+                             f"bit-identical")
+                    e = float((first - plain).abs().max()) if n else 0.0
+                    if e > DENSE_ATOL:
+                        fail(f"retrieval_dot {label}: max |kernel - plain| "
+                             f"{e:.3g} over {DENSE_ATOL}")
+                    errs["retrieval_dot"] = max(errs["retrieval_dot"], e)
+                    n_cases += 1
+    say(f"[parity] retrieval_dot: kernel within {DENSE_ATOL} of the plain "
+        f"version (max |diff| {errs['retrieval_dot']:.3g}), rerun "
+        f"bit-identical, on {n_cases} cases: q in (1, 8, 17), d in (30, 64, "
+        f"256), n in (0, 333, 2048), float32 and bf16 unit rows")
     return errs
 
 
@@ -528,6 +595,206 @@ def split_path(eng, rng, names, probs) -> dict:
     return {"launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
             "library_ms": None}
+
+
+def dot_bound(q: int, n: int, d: int) -> tuple[float, str]:
+    """retrieval_dot's least time in ms and what bounds it: Q and C read
+    once and the (q, n) float32 scores written once, over 3.35 TB/s, or
+    2·q·n·d float32 operations over 67 TFLOP/s."""
+    t_bytes = 4 * (q * d + n * d + q * n) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * q * n * d / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_dot(label: str, u, v) -> dict:
+    """``retrieval_dot`` at one shape: the kernel, its plain version and
+    ``torch.mm`` (the library call), CUDA-event medians of ``REPS``."""
+    import torch
+    from repro_torch.kernels.retrieval_dot.kernel import retrieval_dot_kernel
+    from repro_torch.kernels.retrieval_dot.ref import retrieval_dot_ref
+    (q, d), n = u.shape, v.shape[0]
+    ms = cuda_ms(lambda: retrieval_dot_kernel(u, v), REPS)
+    plain = cuda_ms(lambda: retrieval_dot_ref(u, v), REPS)
+    lib = cuda_ms(lambda: torch.mm(u, v.T), REPS)
+    bound, by = dot_bound(q, n, d)
+    say(f"[time] retrieval_dot {label}: q={q} n={n} d={d}: kernel {ms:.4f} "
+        f"ms, plain version {plain:.4f} ms, torch.mm {lib:.4f} ms (medians "
+        f"of {REPS}), bound {bound:.4f} ms ({by}; "
+        f"{4 * (q * d + n * d + q * n)} bytes, {2 * q * n * d} operations); "
+        f"kernel at {bound / ms:.3f} of the bound")
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+            "bound_by": by, "shape": [q, n, d]}
+
+
+def hybrid_phase(eng, corpus, names, probs, rng) -> dict:
+    """Hybrid retrieval on the Const engine: stage 1, conjunctive candidates
+    from the live index through ``Engine.execute_many`` (the fused kernel);
+    stage 2, the full-width two-tower model and the ``retrieval_dot``
+    kernel over each query's candidates.  Two rounds of the same 32
+    queries, with one fresh document per query ingested between them."""
+    import torch
+    from repro_torch.configs.two_tower_retrieval import CFG, RETRIEVAL_CAND
+    from repro_torch.kernels.fused_query import kernel as fq_kernel
+    from repro_torch.kernels.retrieval_dot import kernel as rd_kernel
+    from repro_torch.kernels.retrieval_dot.ops import candidate_scores
+    from repro_torch.kernels.retrieval_dot.ref import retrieval_dot_ref
+    from repro_torch.models.recsys import TwoTower
+    t_phase = time.perf_counter()
+    dev = eng.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = TwoTower(CFG, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(13))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tables = (model.user_table.weight, model.item_table.weight)
+    table_bytes = sum(t.numel() * t.element_size() for t in tables)
+    say(f"[hybrid] TwoTower {CFG.name} on {dev}: tables {table_bytes} bytes "
+        f"({CFG.n_users_vocab:,} + {CFG.n_items:,} rows x {CFG.embed_dim} "
+        f"{str(CFG.dtype).replace('torch.', '')}), towers "
+        f"{(CFG.embed_dim, *CFG.tower_mlp)}; init {init_s:.3f} s on the "
+        f"device from a seeded generator there; allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    queries = zipf_queries(rng, names, probs, eng, 32, "conjunctive")
+    feats = [rng.integers(0, CFG.n_users_vocab, CFG.n_user_feats)
+             for _ in queries]
+    ones = torch.ones((1, CFG.n_user_feats), device=dev)
+
+    def stage2(qi, cands):
+        """(u, v, scores, top docids, top scores) of query ``qi``."""
+        u = model.user_embedding({
+            "user_feats": torch.from_numpy(feats[qi][None]).to(dev),
+            "user_mask": ones})
+        ids = torch.from_numpy(np.asarray(cands, np.int64)).to(dev)
+        v = model.item_embedding(ids)
+        s = candidate_scores(u, v)[0]
+        top = torch.sort(s, descending=True, stable=True).indices[:TOP]
+        return u, v, s, ids[top], s[top]
+
+    rd_kernel.launches = 0          # counts from here are the hybrid path's
+    fused_before = fq_kernel.launches
+    kept, sizes = [], {}
+    with torch.inference_mode():
+        for rnd in (0, 1):
+            res = eng.execute_many(queries)
+            if any(r.backend != "device" for r in res):
+                fail("a hybrid stage-1 query was not routed to the device "
+                     "backend")
+            check_against_host(eng, res, queries, f"hybrid round {rnd}")
+            for qi, r in enumerate(res):
+                if len(r.docids) == 0:
+                    continue
+                if int(r.docids.max()) >= CFG.n_items:
+                    fail(f"hybrid: docid {int(r.docids.max())} past the "
+                         f"item table ({CFG.n_items} rows)")
+                kept.append((rnd, qi, r.docids, *stage2(qi, r.docids)))
+            torch.cuda.synchronize()
+            n_c = [len(r.docids) for r in res]
+            sizes[rnd] = max(n_c)
+            say(f"[hybrid] round {rnd}: {len(queries)} conjunctive queries "
+                f"through Engine.execute_many (device backend), candidate "
+                f"sets equal the host backend's; {sum(c > 0 for c in n_c)} "
+                f"with candidates (min {min(n_c)}, median "
+                f"{int(np.median(n_c))}, max {max(n_c)}), each scored by the "
+                f"two-tower model, top {TOP} by (score desc, docid asc)")
+            if rnd == 0:
+                # one fresh document per query: its terms and the next
+                # document of the stream (the generator goes on from where
+                # the Const path's stream stopped)
+                corpus.spec = corpus.spec.scaled(len(queries))
+                fresh = [list(q.terms) + [names[i] for i in ids.tolist()]
+                         for q, ids in zip(queries, corpus.doc_term_ids())]
+                new_ids = eng.add_documents(fresh)
+            else:
+                missing = [d for d, r in zip(new_ids, res)
+                           if d not in set(r.docids.tolist())]
+                if missing:
+                    fail(f"hybrid round 1: fresh docids {missing} are not "
+                         f"among their queries' candidates")
+                say(f"[hybrid] round 1: every fresh docid ({len(new_ids)}, "
+                    f"{new_ids[0]}..{new_ids[-1]}) is among its query's "
+                    f"candidates: immediate access through the delta")
+    torch.cuda.synchronize()
+    launches = rd_kernel.launches
+    fused = fq_kernel.launches - fused_before
+    if launches != len(kept):
+        fail(f"retrieval_dot launches on the hybrid path: {launches}, "
+             f"expected one per query with candidates = {len(kept)}")
+    if fused != 2:
+        fail(f"fused_query launches on the hybrid path: {fused}, expected "
+             f"one per round = 2")
+
+    # ---- kernel against the plain version, reruns -----------------------
+    err = 0.0
+    with torch.inference_mode():
+        for rnd, qi, cands, u, v, s, top_d, top_s in kept:
+            plain = retrieval_dot_ref(u, v)[0]
+            again = candidate_scores(u, v)[0]
+            torch.cuda.synchronize()
+            if not bit_identical(s, again):
+                fail(f"hybrid round {rnd} query {qi}: a second "
+                     f"retrieval_dot launch is not bit-identical")
+            e = float((s - plain).abs().max())
+            if e > DENSE_ATOL:
+                fail(f"hybrid round {rnd} query {qi}: max |kernel - plain| "
+                     f"{e:.3g} over {DENSE_ATOL}")
+            err = max(err, e)
+            top = torch.sort(plain, descending=True, stable=True).indices[:TOP]
+            pd = torch.from_numpy(np.asarray(cands, np.int64)).to(
+                plain.device)[top]
+            if not ranking_agrees(top_d.cpu().numpy(), top_s.cpu().numpy(),
+                                  pd.cpu().numpy(), plain[top].cpu().numpy(),
+                                  0.0, DENSE_ATOL):
+                fail(f"hybrid round {rnd} query {qi}: top {TOP} "
+                     f"{top_d.tolist()} differs from the plain version's "
+                     f"{pd.tolist()}")
+    say(f"[hybrid] retrieval_dot launches {launches} = queries with "
+        f"candidates over both rounds; fused_query launches {fused}; kernel "
+        f"within {DENSE_ATOL} of the plain version (max |diff| {err:.3g}), "
+        f"top {TOP} equal up to ties within {DENSE_ATOL}, reruns "
+        f"bit-identical")
+
+    # ---- times ------------------------------------------------------------
+    with torch.inference_mode():
+        stage1 = cuda_ms(lambda: eng.execute_many(queries), REPS)
+        per_query = [cuda_ms(lambda: stage2(qi, c), 5, warm=1)
+                     for rnd, qi, c, *_ in kept if rnd == 1]
+        say(f"[time] hybrid stage 1: {stage1:.4f} ms per batch of "
+            f"{len(queries)} conjunctive queries (median of {REPS}); stage 2 "
+            f"per query (user tower, item tower over the candidates, "
+            f"retrieval_dot, top {TOP}): median {np.median(per_query):.4f} "
+            f"ms, max {max(per_query):.4f} ms over round 1's "
+            f"{len(per_query)} queries with candidates (medians of 5)")
+        big = max(kept, key=lambda k: len(k[2]))
+        path = time_dot(f"at the path's largest candidate set (round "
+                        f"{big[0]})", big[3], big[4])
+        del kept, big
+        g = np.random.default_rng(17)
+        cq = unit_rows(g, 1, CFG.embed_dim, dev)
+        cc = torch.nn.functional.normalize(torch.randn(
+            RETRIEVAL_CAND, CFG.embed_dim, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(17)), dim=1)
+        first = candidate_scores(cq, cc)
+        second = candidate_scores(cq, cc)
+        plain = retrieval_dot_ref(cq, cc)
+        torch.cuda.synchronize()
+        if not bit_identical(first, second):
+            fail("retrieval_dot at retrieval_cand: a second launch is not "
+                 "bit-identical")
+        e = float((first - plain).abs().max())
+        if e > DENSE_ATOL:
+            fail(f"retrieval_dot at retrieval_cand: max |kernel - plain| "
+                 f"{e:.3g} over {DENSE_ATOL}")
+        err = max(err, e)
+        cand = time_dot(f"at retrieval_cand (max |diff| {e:.3g}, rerun "
+                        f"bit-identical)", cq, cc)
+        del cc, first, second, plain
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[hybrid] phase {time.perf_counter() - t_phase:.3f} s")
+    return dict(path, launches=launches, max_abs_err=err,
+                retrieval_cand=cand)
 
 
 def main_path(n_docs: int) -> dict:
@@ -685,11 +952,13 @@ def main_path(n_docs: int) -> dict:
     mean = lambda d: float(np.mean([d[m] for m in MODES]))   # noqa: E731
     if split is None:
         fail("the stream ended before the split path ran")
+    const_index = (eng.index.bytes_per_posting(), eng.index.num_docs)
+    hybrid = hybrid_phase(eng, corpus, names, probs, rng)
     return {"launches": launches, "max_abs_err": err, "ms": mean(ms),
             "plain_ms": mean(plain_ms), "bound_ms": mean(bound),
             "bound_io_ms": mean(io_bound), "bound_by": bound_by,
-            "library_ms": None, "split": split,
-            "index": (eng.index.bytes_per_posting(), eng.index.num_docs)}
+            "library_ms": None, "split": split, "hybrid": hybrid,
+            "index": const_index}
 
 
 # --------------------------------------------------------------------------
@@ -925,6 +1194,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
         return 2
+    # float32 products in full float32 (TF32 would drift 1e-3 from the
+    # kernels): the two-tower towers and the plain versions run cuBLAS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch is missing: run from a checkout of the repo")
     sys.path.insert(0, str(ROOT / "src"))
@@ -957,13 +1230,17 @@ def main() -> int:
         "topk_score": dict(tri["topk_score"], bound_by="bytes",
                            parity=exact),
         "dvbyte_decode": dict(row["split"], parity=exact),
+        "retrieval_dot": dict(row["hybrid"], parity=f"kernel within "
+                              f"{DENSE_ATOL} of the plain version, rerun "
+                              f"bit-identical"),
     }
     rows["intersect"]["max_abs_err"] = max(
         rows["intersect"]["max_abs_err"], term_errs["intersect"])
     rows["topk_score"]["max_abs_err"] = max(
         rows["topk_score"]["max_abs_err"], term_errs["topk_score"])
-    rows["dvbyte_decode"]["max_abs_err"] = max(
-        rows["dvbyte_decode"]["max_abs_err"], term_errs["dvbyte_decode"])
+    for name in ("dvbyte_decode", "retrieval_dot"):
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        term_errs[name])
     kernels = []
     for name, r in rows.items():
         entry = {"name": name, "route": "cuda",
@@ -972,8 +1249,9 @@ def main() -> int:
         for key in ("launches", "max_abs_err", "parity", "ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms"):
             entry[key] = r[key]
-        if "bound_io_ms" in r:
-            entry["bound_io_ms"] = r["bound_io_ms"]
+        for key in ("bound_io_ms", "retrieval_cand"):
+            if key in r:
+                entry[key] = r[key]
         kernels.append(entry)
     say(json.dumps({"kernels": kernels}))
     say(f"[card] {card_line()}")

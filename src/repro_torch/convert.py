@@ -8,7 +8,10 @@ JAX: a caller converts a JAX object's fields with ``np.asarray`` first.
   can then be fed to both packages' fused query ops;
 * :func:`dynamic_index_from_arrays` rebuilds a port
   :class:`~repro_torch.core.index.DynamicIndex` from a dynamic index's
-  state, so ``Engine(index=...)`` can adopt an index built elsewhere.
+  state, so ``Engine(index=...)`` can adopt an index built elsewhere;
+* :func:`twotower_from_jax` builds a port
+  :class:`~repro_torch.models.recsys.TwoTower` holding the parameters of
+  the reference's ``twotower_init`` pytree.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from .core.device_index import DeltaIndex, DeviceIndex, resolve_device
 from .core.index import DynamicIndex
+from .models.recsys import TwoTower, TwoTowerConfig
 
 _IMAGE_FIELDS = ("blocks", "term_slot", "term_nblk", "term_skip", "term_nx",
                  "term_ft")
@@ -73,3 +77,36 @@ def dynamic_index_from_arrays(*, I: np.ndarray, nblocks: int,
     idx.num_words = int(num_words)
     idx.tombstones = set(int(d) for d in tombstones)
     return idx
+
+
+def twotower_from_jax(params: dict, cfg: TwoTowerConfig,
+                      device=None) -> TwoTower:
+    """A :class:`TwoTower` computing what the reference's two-tower
+    functions compute with ``params``: its ``twotower_init`` pytree with
+    numpy arrays as leaves (``user_table``, ``item_table`` (rows, D), and
+    ``user_tower``/``item_tower`` lists of ``{"w": (in, out), "b": (out,)}``).
+    Each ``w`` becomes a ``Linear.weight`` (out, in).  ``device`` None
+    means the card (see :func:`resolve_device`)."""
+    device = resolve_device(device)
+    model = TwoTower(cfg, device=device)
+
+    def put(dst: torch.Tensor, src) -> None:
+        src = torch.from_numpy(np.array(src, dtype=np.float32))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"parameter of shape {tuple(src.shape)}, "
+                             f"expected {tuple(dst.shape)}")
+        dst.copy_(src.to(device=device, dtype=dst.dtype))
+
+    with torch.no_grad():
+        put(model.user_table.weight, params["user_table"])
+        put(model.item_table.weight, params["item_table"])
+        for name in ("user_tower", "item_tower"):
+            linears = [m for m in getattr(model, name)
+                       if isinstance(m, torch.nn.Linear)]
+            if len(linears) != len(params[name]):
+                raise ValueError(f"{name}: {len(params[name])} layers, the "
+                                 f"config has {len(linears)}")
+            for lin, layer in zip(linears, params[name]):
+                put(lin.weight, np.asarray(layer["w"]).T)
+                put(lin.bias, layer["b"])
+    return model

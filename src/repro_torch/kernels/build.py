@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel name -> its CUDA source
 SOURCES = {
     name: KERNELS_DIR / name / "csrc" / f"{name}.cu"
-    for name in ("fused_query", "intersect", "topk_score", "dvbyte_decode")
+    for name in ("fused_query", "intersect", "topk_score", "dvbyte_decode",
+                 "retrieval_dot")
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -4,7 +4,8 @@ The same document stream goes through both packages' dynamic indexes; the
 block store bytes, block counts, hash arrays and every decoded chain must be
 equal, and so must the collated bytes.  Two import guards prove the port
 stands alone: importing every ``repro_torch`` module leaves ``jax`` (and
-``repro``) out of ``sys.modules``, and no port source imports either.
+``repro``) out of ``sys.modules``, and no port source imports either, nor
+do the port's scripts (``chip_smoke.py``, the hybrid retrieval example).
 """
 
 import os
@@ -110,3 +111,11 @@ _FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|repro)(?:[.\s,]|$)",
 def test_port_source_imports_neither_jax_nor_repro(path):
     src = (PORT / path).read_text()
     assert not _FORBIDDEN.findall(src)
+
+
+@pytest.mark.parametrize("path", ["examples/hybrid_retrieval_torch.py",
+                                  "chip_smoke.py"])
+def test_port_scripts_import_neither_jax_nor_repro(path):
+    """The port's scripts outside the package stand alone too."""
+    src = (PORT.parents[1] / path).read_text()
+    assert "repro_torch" in src and not _FORBIDDEN.findall(src)
