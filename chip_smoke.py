@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                  # Const path cut, Path A full
     python3 chip_smoke.py --docs 98732     # the Const path at full scale too
+    python3 chip_smoke.py --kernels        # phases 1-2 and the kernels at
+                                           # the paths' shapes, ~1 min
 
 Phases, each printing its own lines; the first failed check exits non-zero:
 
@@ -16,11 +18,14 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      docids equal, scores within rtol 1e-6); ``intersect`` (empty lists,
      disjoint ranges, PAD entries, lengths that are not multiples of 32),
      ``topk_score`` (an empty input, docid 0 present, one and several
+     segments, n_docs at its 512-docid tiles and one off, a segment inside
+     one tile, an empty segment, docids past n_docs, 16, 17 and 40
      segments) and ``dvbyte_decode`` (the small engine's gathered chain
      blocks: escapes at F = 4, heads with start > H, tails with end < B,
      empty blocks), all exactly; ``retrieval_dot`` (q in 1, 8, 17; d in 30,
-     64, 256; n in 0, 333, 2,048; float32 and bf16 unit rows) within
-     ``DENSE_ATOL`` of its plain version;
+     64, 256; n in 0, 333, 2,048; float32 and bf16 unit rows; n off its
+     row blocking, d off its 256-float pass, C's base one row and one float
+     along) within ``DENSE_ATOL`` of its plain version;
   3. the Const main path: the first ``--docs`` documents (default
      ``CONST_DOCS``, the cut that keeps the whole run under about 900 s of
      its 1,200 s limit; 98,732 is the full stream) of the WSJ1-like stream
@@ -75,10 +80,23 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      against the host backend, the ``intersect`` and ``topk_score`` launch
      counts must equal the expected ones, and each kernel is timed at the
      round's largest shapes beside its plain version, its bound and the one
-     PyTorch call that computes the same function;
+     PyTorch call that computes the same function; then ``topk_score`` on
+     seeded inputs of 9 and 40 segments over the same docids (off the
+     path: a ranked query has 1-4 terms);
   5. one JSON line listing each kernel with its launches, parity error,
      times and bound; the card again; and as the last line
      ``{"ok": true, "device": {...}}``.
+
+Kernel times are device times from :func:`device_ms_in_turns`: runs of
+``LAUNCHES`` back-to-back launches between two CUDA events, queued behind
+a sleep kernel so that the host's enqueue time (a ctypes wrapper takes
+0.02-0.04 ms a call) is not in them, in turns with the one PyTorch call
+that computes the same function where there is one (kernel, library,
+library, kernel); each line gives the host's enqueue time per call apart.
+Plain versions and end-to-end lines are timed call by call (``cuda_ms``,
+host clock).  ``--kernels`` stops after phase 2 and times the kernels that
+have a library call on seeded inputs at the paths' shapes (``topk_score``
+also at 9 and 40 segments); it drives no path and prints no result line.
 
 Imports nothing of JAX.  Kernels build into ``src/repro_torch/kernels/_build``.
 """
@@ -99,7 +117,9 @@ ROOT = Path(__file__).resolve().parent
 MODES = ("conjunctive", "ranked_tfidf", "bm25")
 K = 10
 N_BATCHES = 2                  # query batches of 32 per mode on the main path
-REPS = 20                      # timed launches per mode
+REPS = 20                      # timed calls of a plain version or a batch
+LAUNCHES = 20                  # back-to-back kernel launches per timed run
+RUNS = 7                       # timed runs per turn
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 TRIANGLE_DOCS = 98_732         # Path A's stream: WSJ1-like, full scale
 CONST_DOCS = 73_728            # the Const path's stream, cut (full: 98,732):
@@ -271,8 +291,95 @@ def launch_bound(args, mode) -> tuple[float, str, float]:
     return t_ops, "operations", max(t_io, t_ops)
 
 
+def _queued_run(fn, launches: int, sleep_cycles: int):
+    """One timed run: ``launches`` calls of ``fn`` enqueued behind a sleep
+    kernel, between two CUDA events.  Returns (device ms per call, host ms
+    per call to enqueue, whether the card was still asleep when the last
+    call was enqueued: then no launch waited for the host)."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    host = (time.perf_counter() - t0) / launches * 1e3
+    queued = not a.query()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / launches, host, queued
+
+
+def device_ms_in_turns(kernel, library=None) -> dict:
+    """Device time per call of ``kernel`` and of the ``library`` call that
+    computes the same function, without the host's enqueue time.
+
+    Each run enqueues ``LAUNCHES`` back-to-back calls between two CUDA
+    events, behind a sleep kernel long enough that the card starts on them
+    only after the last is enqueued (the sleep doubles until it is).  The
+    two alternate in turns (kernel, library, library, kernel), ``RUNS``
+    runs a turn; each turn gives its median, each callable the mean of its
+    two turns.  The host's enqueue time per call is reported apart.  A
+    call that waits for the card itself (its runs cannot be queued) is
+    timed in runs all the same, and its time holds the host's; ``waits``
+    names it.  Returns ``ms``, ``library_ms`` (None without a library
+    call), ``turns``, ``waits`` and ``host_ms`` (label -> median)."""
+    import torch
+    fns = {"kernel": kernel}
+    if library is not None:
+        fns["library"] = library
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    order = list(fns) + list(fns)[::-1]
+    sleep = 1 << 20
+    turns, host, waits = [], {k: [] for k in fns}, set()
+    for label in order:
+        times = []
+        while len(times) < RUNS:
+            ms, h, queued = _queued_run(fns[label], LAUNCHES,
+                                        0 if label in waits else sleep)
+            if not queued and label not in waits:
+                if _queued_run(fns[label], 1, 1 << 26)[2]:
+                    sleep *= 2
+                else:           # it waits for the card: time it as it is
+                    waits.add(label)
+                continue
+            times.append(ms)
+            host[label].append(h)
+        turns.append(float(np.median(times)))
+    dev = {k: float(np.mean([t for lab, t in zip(order, turns) if lab == k]))
+           for k in fns}
+    return {"ms": dev["kernel"], "library_ms": dev.get("library"),
+            "turns": turns, "waits": sorted(waits),
+            "host_ms": {k: float(np.median(v)) for k, v in host.items()}}
+
+
+def turns_text(t: dict, library: str = "library") -> str:
+    """How ``device_ms_in_turns`` measured ``t``, for a ``[time]`` line."""
+    how = (f"device ms per call in runs of {LAUNCHES} back-to-back launches, "
+           f"medians of {RUNS} runs a turn")
+    for label in t["waits"]:
+        name = library if label == "library" else label
+        how += (f"; {name} waits for the card within a call, so its runs "
+                f"hold the host's time too")
+    turns = " / ".join(f"{x:.4f}" for x in t["turns"])
+    if t["library_ms"] is None:
+        return (f"(kernel, kernel: {turns}; {how}; host ms per call to "
+                f"enqueue {t['host_ms']['kernel']:.4f})")
+    return (f"in turns (kernel, {library}, {library}, kernel: {turns}; {how}); "
+            f"kernel/{library} {t['ms'] / t['library_ms']:.3f}; host ms per "
+            f"call to enqueue: kernel {t['host_ms']['kernel']:.4f}, {library} "
+            f"{t['host_ms']['library']:.4f}")
+
+
 def cuda_ms(fn, reps: int, warm: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    """Median time of ``fn`` over ``reps`` calls, each between two CUDA
+    events: the device's time, plus the host's enqueue time where that is
+    the longer.  For plain versions and end-to-end lines; kernels are timed
+    by :func:`device_ms_in_turns`."""
     import torch
     for _ in range(warm):
         fn()
@@ -421,18 +528,42 @@ def term_kernel_parity(eng, rng, names, probs) -> dict:
         return (torch.from_numpy(np.concatenate(ds)).to(dev),
                 torch.from_numpy(np.concatenate(ws)).to(dev), off)
 
+    def joined(*parts):
+        """Segments ``parts`` (docid arrays) run after one another."""
+        off = np.cumsum([0] + [len(p) for p in parts]).tolist()
+        d = np.concatenate(parts).astype(np.int32)
+        return (torch.from_numpy(d).to(dev), torch.from_numpy(
+            (g.random(len(d)) * 5).astype(np.float32)).to(dev), off)
+
+    def run(lo, hi, n):
+        return np.sort(g.choice(np.arange(lo, hi), size=n, replace=False))
+
     tcases = {
         "an empty input": (none, torch.zeros(0, device=dev), [0, 0], 300),
         "docid 0 present": (*segments(777, 1, with_zero=True), 777),
         "one segment": (*segments(5000, 1), 5000),
         "four segments over 98,733 docids": (*segments(98_733, 4), 98_733),
+        # tile edges: 512 docids a block (2,048 before), and one off each
+        **{f"n_docs {n}": (*segments(n, 3), n)
+           for n in (511, 512, 513, 1023, 1025, 2047, 2048, 2049)},
+        "a segment wholly inside one tile": (
+            *joined(run(1, 3000, 900), run(780, 1000, 150),
+                    run(1, 3000, 1200)), 3000),
+        "an empty segment between full ones": (
+            *joined(run(1, 4000, 2000), run(0, 1, 0), run(1, 4000, 1500)),
+            4000),
+        "docids past n_docs": (*joined(run(1, 1500, 700), run(1, 1500, 900)),
+                               1000),
+        # a block stages 16 segments a pass
+        **{f"{ns} segments": (*segments(20_000, ns), 20_000)
+           for ns in (16, 17, 40)},
     }
     errs["topk_score"] = 0.0
     for d, w, off, n in tcases.values():
         ot = torch.tensor(off, dtype=torch.int32, device=dev)
         errs["topk_score"] = max(errs["topk_score"], exact_and_repeatable(
             "topk_score", score_kernel(d, w, n, ot), score_kernel(d, w, n, ot),
-            score_ref(d, w, n)))
+            score_ref(d, w, n, off)))
     say(f"[parity] topk_score: kernel == plain version bit for bit, rerun "
         f"bit-identical, on {', '.join(tcases)}")
 
@@ -472,34 +603,51 @@ def term_kernel_parity(eng, rng, names, probs) -> dict:
     from repro_torch.kernels.retrieval_dot.ops import candidate_scores
     from repro_torch.kernels.retrieval_dot.ref import retrieval_dot_ref
     errs["retrieval_dot"] = 0.0
+
+    def dot_case(label, qt, ct):
+        qn, n = qt.shape[0], ct.shape[0]
+        first = candidate_scores(qt, ct)
+        second = candidate_scores(qt, ct)
+        plain = retrieval_dot_ref(qt, ct)
+        torch.cuda.synchronize()
+        if first.shape != (qn, n) or first.dtype != torch.float32:
+            fail(f"retrieval_dot {label}: output {tuple(first.shape)} "
+                 f"{first.dtype}")
+        if not bit_identical(first, second):
+            fail(f"retrieval_dot {label}: a second launch is not "
+                 f"bit-identical")
+        e = float((first - plain).abs().max()) if n else 0.0
+        if e > DENSE_ATOL:
+            fail(f"retrieval_dot {label}: max |kernel - plain| {e:.3g} over "
+                 f"{DENSE_ATOL}")
+        errs["retrieval_dot"] = max(errs["retrieval_dot"], e)
+
     n_cases = 0
     for qn in (1, 8, 17):
         for d in (30, 64, 256):
             for n in (0, 333, 2048):
                 qv, cv = (unit_rows(g, rows, d, dev) for rows in (qn, n))
                 for dt in (torch.float32, torch.bfloat16):
-                    qt, ct = qv.to(dt), cv.to(dt)
-                    first = candidate_scores(qt, ct)
-                    second = candidate_scores(qt, ct)
-                    plain = retrieval_dot_ref(qt, ct)
-                    torch.cuda.synchronize()
-                    label = f"q={qn} d={d} n={n} {dt}"
-                    if first.shape != (qn, n) or first.dtype != torch.float32:
-                        fail(f"retrieval_dot {label}: output "
-                             f"{tuple(first.shape)} {first.dtype}")
-                    if not bit_identical(first, second):
-                        fail(f"retrieval_dot {label}: a second launch is not "
-                             f"bit-identical")
-                    e = float((first - plain).abs().max()) if n else 0.0
-                    if e > DENSE_ATOL:
-                        fail(f"retrieval_dot {label}: max |kernel - plain| "
-                             f"{e:.3g} over {DENSE_ATOL}")
-                    errs["retrieval_dot"] = max(errs["retrieval_dot"], e)
+                    dot_case(f"q={qn} d={d} n={n} {dt}", qv.to(dt), cv.to(dt))
                     n_cases += 1
+    # row counts off the kernel's 2 rows a warp and 16 a block; widths off
+    # its 256-float pass; C's base one row and one float (unaligned) along
+    extra = [(1, 1, 256), (1, 7, 256), (1, 4099, 256), (8, 4099, 256),
+             (3, 7, 1000), (17, 4099, 1000), (2, 333, 1028)]
+    for qn, n, d in extra:
+        dot_case(f"q={qn} n={n} d={d}", unit_rows(g, qn, d, dev),
+                 unit_rows(g, n, d, dev))
+    for qn, n in ((8, 333), (1, 4099)):
+        qv, flat = unit_rows(g, qn, 256, dev), unit_rows(g, n + 1, 256, dev)
+        dot_case(f"q={qn} n={n}, C at a one-row offset", qv, flat[1:])
+        dot_case(f"q={qn} n={n}, C at a one-float offset", qv,
+                 flat.flatten()[1:1 + n * 256].view(n, 256))
     say(f"[parity] retrieval_dot: kernel within {DENSE_ATOL} of the plain "
         f"version (max |diff| {errs['retrieval_dot']:.3g}), rerun "
-        f"bit-identical, on {n_cases} cases: q in (1, 8, 17), d in (30, 64, "
-        f"256), n in (0, 333, 2048), float32 and bf16 unit rows")
+        f"bit-identical, on {n_cases + len(extra) + 4} cases: q in (1, 8, "
+        f"17), d in (30, 64, 256), n in (0, 333, 2048), float32 and bf16 "
+        f"unit rows; (q, n, d) in {extra}; C at a one-row and a one-float "
+        f"offset (q, n) in ((8, 333), (1, 4099)), d = 256")
     return errs
 
 
@@ -582,15 +730,17 @@ def split_path(eng, rng, names, probs) -> dict:
         "dvbyte_decode", dvbyte_decode_kernel(blocks, start, end, F),
         dvbyte_decode_kernel(blocks, start, end, F),
         decode_blocks(blocks, start, end, F))
-    ms = cuda_ms(lambda: dvbyte_decode_kernel(blocks, start, end, F), REPS)
+    t = device_ms_in_turns(lambda: dvbyte_decode_kernel(blocks, start, end,
+                                                        F))
+    ms = t["ms"]
     plain_ms = cuda_ms(lambda: decode_blocks(blocks, start, end, F),
                        REPS // 4, warm=1)
     NB, B = blocks.shape
     bound = bound_ms(NB * B + 8 * NB + 9 * NB * B)
     say(f"[time] dvbyte_decode: NB={NB} (Q={qt.shape[0]} T={qt.shape[1]} "
-        f"cap={res.max_blocks[0]}) B={B}: kernel {ms:.4f} ms (median of "
-        f"{REPS}), plain version {plain_ms:.4f} ms (median of {REPS // 4}), "
-        f"bound {bound:.4f} ms ({NB * B + 8 * NB} bytes in, {9 * NB * B} "
+        f"cap={res.max_blocks[0]}) B={B}: kernel {ms:.4f} ms "
+        f"{turns_text(t)}, plain version {plain_ms:.4f} ms (median of "
+        f"{REPS // 4}), bound {bound:.4f} ms ({NB * B + 8 * NB} bytes in, {9 * NB * B} "
         f"out); parity exact, rerun bit-identical")
     return {"launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
@@ -607,23 +757,52 @@ def dot_bound(q: int, n: int, d: int) -> tuple[float, str]:
 
 
 def time_dot(label: str, u, v) -> dict:
-    """``retrieval_dot`` at one shape: the kernel, its plain version and
-    ``torch.mm`` (the library call), CUDA-event medians of ``REPS``."""
+    """``retrieval_dot`` at one shape: the kernel against ``torch.mm`` (the
+    library call) in turns, and its plain version."""
     import torch
     from repro_torch.kernels.retrieval_dot.kernel import retrieval_dot_kernel
     from repro_torch.kernels.retrieval_dot.ref import retrieval_dot_ref
     (q, d), n = u.shape, v.shape[0]
-    ms = cuda_ms(lambda: retrieval_dot_kernel(u, v), REPS)
+    t = device_ms_in_turns(lambda: retrieval_dot_kernel(u, v),
+                           lambda: torch.mm(u, v.T))
+    ms, lib = t["ms"], t["library_ms"]
     plain = cuda_ms(lambda: retrieval_dot_ref(u, v), REPS)
-    lib = cuda_ms(lambda: torch.mm(u, v.T), REPS)
     bound, by = dot_bound(q, n, d)
     say(f"[time] retrieval_dot {label}: q={q} n={n} d={d}: kernel {ms:.4f} "
-        f"ms, plain version {plain:.4f} ms, torch.mm {lib:.4f} ms (medians "
-        f"of {REPS}), bound {bound:.4f} ms ({by}; "
-        f"{4 * (q * d + n * d + q * n)} bytes, {2 * q * n * d} operations); "
-        f"kernel at {bound / ms:.3f} of the bound")
+        f"ms, torch.mm {lib:.4f} ms {turns_text(t, 'torch.mm')}; plain "
+        f"version {plain:.4f} ms (median of {REPS}); bound {bound:.4f} ms "
+        f"({by}; {4 * (q * d + n * d + q * n)} bytes, {2 * q * n * d} "
+        f"operations); kernel at {bound / ms:.3f} of the bound, torch.mm at "
+        f"{bound / lib:.3f}")
     return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
             "bound_by": by, "shape": [q, n, d]}
+
+
+def seeded_dot(label: str, n: int, d: int, dev) -> tuple[float, dict]:
+    """``retrieval_dot`` of a seeded unit user row against ``n`` seeded unit
+    candidate rows of width ``d``, made on the card: within ``DENSE_ATOL``
+    of its plain version, rerun bit-identical, then timed.  Returns (max
+    |kernel - plain|, the :func:`time_dot` row)."""
+    import torch
+    from repro_torch.kernels.retrieval_dot.ops import candidate_scores
+    from repro_torch.kernels.retrieval_dot.ref import retrieval_dot_ref
+    cq = unit_rows(np.random.default_rng(17), 1, d, dev)
+    cc = torch.nn.functional.normalize(torch.randn(
+        n, d, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(17)), dim=1)
+    first = candidate_scores(cq, cc)
+    second = candidate_scores(cq, cc)
+    plain = retrieval_dot_ref(cq, cc)
+    torch.cuda.synchronize()
+    if not bit_identical(first, second):
+        fail(f"retrieval_dot {label}: a second launch is not bit-identical")
+    e = float((first - plain).abs().max())
+    if e > DENSE_ATOL:
+        fail(f"retrieval_dot {label}: max |kernel - plain| {e:.3g} over "
+             f"{DENSE_ATOL}")
+    del first, second, plain
+    return e, time_dot(f"{label} (max |diff| {e:.3g}, rerun bit-identical)",
+                       cq, cc)
 
 
 def hybrid_phase(eng, corpus, names, probs, rng) -> dict:
@@ -769,26 +948,9 @@ def hybrid_phase(eng, corpus, names, probs, rng) -> dict:
         path = time_dot(f"at the path's largest candidate set (round "
                         f"{big[0]})", big[3], big[4])
         del kept, big
-        g = np.random.default_rng(17)
-        cq = unit_rows(g, 1, CFG.embed_dim, dev)
-        cc = torch.nn.functional.normalize(torch.randn(
-            RETRIEVAL_CAND, CFG.embed_dim, device=dev,
-            generator=torch.Generator(device=dev).manual_seed(17)), dim=1)
-        first = candidate_scores(cq, cc)
-        second = candidate_scores(cq, cc)
-        plain = retrieval_dot_ref(cq, cc)
-        torch.cuda.synchronize()
-        if not bit_identical(first, second):
-            fail("retrieval_dot at retrieval_cand: a second launch is not "
-                 "bit-identical")
-        e = float((first - plain).abs().max())
-        if e > DENSE_ATOL:
-            fail(f"retrieval_dot at retrieval_cand: max |kernel - plain| "
-                 f"{e:.3g} over {DENSE_ATOL}")
+        e, cand = seeded_dot("at retrieval_cand", RETRIEVAL_CAND,
+                             CFG.embed_dim, dev)
         err = max(err, e)
-        cand = time_dot(f"at retrieval_cand (max |diff| {e:.3g}, rerun "
-                        f"bit-identical)", cq, cc)
-        del cc, first, second, plain
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -926,8 +1088,9 @@ def main_path(n_docs: int) -> dict:
     for qs, mode in zip(groups[:3], MODES):
         args = prepared_batch(eng, qs, mode)
         err = max(err, kernel_vs_plain(args, mode))
-        ms[mode] = cuda_ms(lambda: fused_query_kernel(mode=mode, k=K, **args),
-                           REPS)
+        t = device_ms_in_turns(
+            lambda: fused_query_kernel(mode=mode, k=K, **args))
+        ms[mode] = t["ms"]
         plain_ms[mode] = cuda_ms(lambda: fused_tile(mode=mode, k=K, **args),
                                  REPS // 4, warm=1)
         bound[mode], by, io_bound[mode] = launch_bound(args, mode)
@@ -944,7 +1107,7 @@ def main_path(n_docs: int) -> dict:
         parts = args["parts"]
         say(f"[time] {mode}: Q={args['nterms'].shape[0]} "
             f"PB={[p[0].shape[1] for p in parts]} cap={args['cap']}: "
-            f"kernel {ms[mode]:.4f} ms (median of {REPS}), plain version "
+            f"kernel {ms[mode]:.4f} ms {turns_text(t)}, plain version "
             f"{plain_ms[mode]:.4f} ms (median of {REPS // 4}), bound "
             f"{bound[mode]:.4f} ms ({io_bound[mode]:.4f} ms without the "
             f"accumulator's traffic); engine batch end to end "
@@ -1026,6 +1189,84 @@ def serve_round(eng, svc, groups, label: str) -> dict:
     return got
 
 
+def time_intersect(label: str, a, b) -> dict:
+    """``intersect`` at one input: the kernel against ``torch.isin`` in
+    turns, its plain version and its bound.  ``torch.isin`` waits for the
+    card within a call, so its time holds the host's (the line says so)."""
+    import torch
+    from repro_torch.kernels.intersect.kernel import intersect_kernel
+    from repro_torch.kernels.intersect.ref import intersect_ref
+    t = device_ms_in_turns(lambda: intersect_kernel(a, b),
+                           lambda: torch.isin(a, b))
+    plain = cuda_ms(lambda: intersect_ref(a, b), REPS)
+    bound = bound_ms(4 * a.numel() + 4 * b.numel() + a.numel())
+    say(f"[time] {label} intersect: |a|={a.numel()} |b|={b.numel()}: kernel "
+        f"{t['ms']:.4f} ms, torch.isin {t['library_ms']:.4f} ms "
+        f"{turns_text(t, 'torch.isin')}; plain version {plain:.4f} ms "
+        f"(median of {REPS}); bound {bound:.6f} ms; parity exact, rerun "
+        f"bit-identical")
+    return dict(ms=t["ms"], plain_ms=plain, library_ms=t["library_ms"],
+                bound_ms=bound)
+
+
+def time_score(label: str, d, w, n: int, offsets) -> dict:
+    """``topk_score`` at one input (``offsets`` the segment bounds on the
+    host): the kernel against ``zeros + index_add_`` in turns, its plain
+    version and its bound."""
+    import torch
+    from repro_torch.kernels.topk_score.kernel import score_kernel
+    from repro_torch.kernels.topk_score.ref import score_ref
+    ot = torch.tensor([int(x) for x in offsets], dtype=torch.int32,
+                      device=d.device)
+    dl = d.long()
+    t = device_ms_in_turns(
+        lambda: score_kernel(d, w, n, ot),
+        lambda: torch.zeros(n, device=d.device).index_add_(0, dl, w))
+    plain = cuda_ms(lambda: score_ref(d, w, n, offsets), REPS)
+    bound = bound_ms(8 * d.numel() + 4 * ot.numel() + 4 * n)
+    say(f"[time] {label} topk_score: M={d.numel()} postings in "
+        f"{ot.numel() - 1} segments, n_docs={n}: kernel {t['ms']:.4f} ms, "
+        f"zeros + index_add_ {t['library_ms']:.4f} ms "
+        f"{turns_text(t, 'library')}; plain version {plain:.4f} ms (median "
+        f"of {REPS}); bound {bound:.6f} ms (bytes), kernel at "
+        f"{bound / t['ms']:.3f} of it; parity exact, rerun bit-identical")
+    return dict(ms=t["ms"], plain_ms=plain, library_ms=t["library_ms"],
+                bound_ms=bound)
+
+
+#: synthetic ranked inputs over Path A's 98,733 docids: segment sizes for
+#: Path A's largest shape (4 segments, 290,352 postings) and, off the path,
+#: 9 and 40 segments of about the same total
+SCORE_SWEEP = {4: (96_000, 80_000, 62_000, 52_352), 9: (32_000,) * 9,
+               40: (7_000,) * 40}
+
+
+def score_sweep(dev, nsegs, n_docs: int = 98_733) -> dict:
+    """``topk_score`` on seeded synthetic postings with ``nsegs`` segments
+    (keys of ``SCORE_SWEEP``): parity exact, rerun bit-identical, timed."""
+    import torch
+    from repro_torch.kernels.topk_score.kernel import score_kernel
+    from repro_torch.kernels.topk_score.ref import score_ref
+    g = np.random.default_rng(29)
+    out = {}
+    for nseg in nsegs:
+        ds, off = [], [0]
+        for size in SCORE_SWEEP[nseg]:
+            ds.append(np.sort(g.choice(np.arange(1, n_docs), size=size,
+                                       replace=False)).astype(np.int32))
+            off.append(off[-1] + size)
+        d = torch.from_numpy(np.concatenate(ds)).to(dev)
+        w = torch.from_numpy((g.random(off[-1]) * 5).astype(np.float32)).to(
+            dev)
+        ot = torch.tensor(off, dtype=torch.int32, device=dev)
+        exact_and_repeatable("topk_score", score_kernel(d, w, n_docs, ot),
+                             score_kernel(d, w, n_docs, ot),
+                             score_ref(d, w, n_docs, off))
+        where = "Path A's shape" if nseg == 4 else "off the path"
+        out[nseg] = time_score(f"synthetic ({where})", d, w, n_docs, off)
+    return out
+
+
 def time_round(eng, groups, label: str) -> dict:
     """Per-query kernel-backend time by mode, end to end and its host
     postings decode; then each kernel at the round's largest shapes against
@@ -1072,16 +1313,7 @@ def time_round(eng, groups, label: str) -> dict:
         err = exact_and_repeatable("intersect", intersect_kernel(a, b),
                                    intersect_kernel(a, b),
                                    intersect_ref(a, b))
-        ms = cuda_ms(lambda: intersect_kernel(a, b), REPS)
-        plain = cuda_ms(lambda: intersect_ref(a, b), REPS)
-        lib = cuda_ms(lambda: torch.isin(a, b), REPS)
-        bound = bound_ms(4 * a.numel() + 4 * b.numel() + a.numel())
-        out["intersect"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                bound_ms=bound, max_abs_err=err)
-        say(f"[time] {label} intersect: |a|={a.numel()} |b|={b.numel()}: "
-            f"kernel {ms:.4f} ms, plain version {plain:.4f} ms, torch.isin "
-            f"{lib:.4f} ms (medians of {REPS}), bound {bound:.6f} ms; parity "
-            f"exact, rerun bit-identical")
+        out["intersect"] = dict(time_intersect(label, a, b), max_abs_err=err)
     # topk_score: the ranked query with the most postings
     best = None
     for qs in groups[1:]:
@@ -1096,19 +1328,8 @@ def time_round(eng, groups, label: str) -> dict:
         err = exact_and_repeatable("topk_score", score_kernel(d, w, n, ot),
                                    score_kernel(d, w, n, ot),
                                    score_ref(d, w, n, best[2]))
-        dl = d.long()
-        ms = cuda_ms(lambda: score_kernel(d, w, n, ot), REPS)
-        plain = cuda_ms(lambda: score_ref(d, w, n, best[2]), REPS)
-        lib = cuda_ms(lambda: torch.zeros(n, device=dev).index_add_(0, dl, w),
-                      REPS)
-        bound = bound_ms(8 * d.numel() + 4 * ot.numel() + 4 * n)
-        out["topk_score"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                 bound_ms=bound, max_abs_err=err)
-        say(f"[time] {label} topk_score: M={d.numel()} postings in "
-            f"{ot.numel() - 1} segments, n_docs={n}: kernel {ms:.4f} ms, plain "
-            f"version {plain:.4f} ms, index_add_ {lib:.4f} ms (medians of "
-            f"{REPS}), bound {bound:.6f} ms; parity exact, rerun "
-            f"bit-identical")
+        out["topk_score"] = dict(time_score(label, d, w, n, best[2]),
+                                 max_abs_err=err)
     return out
 
 
@@ -1181,14 +1402,43 @@ def triangle_path(n_docs: int, const_index: tuple[float, int]) -> dict:
     for name in launches:
         if launches[name] == 0 or name not in timed:
             fail(f"Path A never launched {name}")
-    return {name: dict(timed[name], launches=launches[name])
-            for name in launches}
+    out = {name: dict(timed[name], launches=launches[name])
+           for name in launches}
+    out["topk_score"]["off_path"] = {
+        f"{nseg} segments": {k: r[k] for k in ("ms", "library_ms")}
+        for nseg, r in score_sweep(eng.device, (9, 40)).items()}
+    return out
+
+
+def kernel_shapes(dev) -> None:
+    """``--kernels``: the kernels that have a library call, against it, on
+    seeded inputs at the paths' shapes (Path A's round 2, the hybrid path's
+    largest candidate set, retrieval_cand), without driving the paths."""
+    import torch
+    from repro_torch.configs.two_tower_retrieval import CFG, RETRIEVAL_CAND
+    from repro_torch.kernels.intersect.kernel import intersect_kernel
+    from repro_torch.kernels.intersect.ref import intersect_ref
+    score_sweep(dev, (4, 9, 40))
+    g = np.random.default_rng(31)
+    b = torch.arange(1, 98_733, dtype=torch.int32, device=dev)
+    a = torch.from_numpy(np.sort(g.choice(np.arange(1, 98_733), size=91_737,
+                                          replace=False)).astype(np.int32))
+    a = a.to(dev)
+    exact_and_repeatable("intersect", intersect_kernel(a, b),
+                         intersect_kernel(a, b), intersect_ref(a, b))
+    time_intersect("synthetic (Path A's shape)", a, b)
+    for n in (73_474, RETRIEVAL_CAND):
+        seeded_dot(f"synthetic, n={n}", n, CFG.embed_dim, dev)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=CONST_DOCS,
                     help="documents in the Const path's WSJ1-like stream")
+    ap.add_argument("--kernels", action="store_true",
+                    help="build and check every kernel, time the kernels "
+                         "that have a library call on seeded inputs at the "
+                         "paths' shapes, and stop: no path is driven")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1215,6 +1465,11 @@ def main() -> int:
     small = small_engine()
     small_err = small_parity(*small)
     term_errs = term_kernel_parity(*small)
+    if args.kernels:
+        kernel_shapes(small[0].device)
+        say(f"[card] {card_line()}")
+        say("[done] --kernels: no path was driven")
+        return 0
     row = main_path(args.docs)
     gc.collect()       # the Const engine's host index goes before Path A's
     tri = triangle_path(TRIANGLE_DOCS, row["index"])
@@ -1249,7 +1504,7 @@ def main() -> int:
         for key in ("launches", "max_abs_err", "parity", "ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms"):
             entry[key] = r[key]
-        for key in ("bound_io_ms", "retrieval_cand"):
+        for key in ("bound_io_ms", "retrieval_cand", "off_path"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

@@ -22,10 +22,6 @@ from ..cuda_args import check, raise_on_error, require_cuda
 #: kernel launches made through :func:`retrieval_dot_kernel`
 launches = 0
 
-#: the widest embedding the kernel takes (its query tile lives in shared
-#: memory, 8 rows of MAX_D floats)
-MAX_D = 4096
-
 
 def _lib():
     fn = build.load("retrieval_dot").rd_launch
@@ -45,8 +41,6 @@ def retrieval_dot_kernel(q: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     (Q, D), N = q.shape, cand.shape[0]
     check(q, "q", torch.float32, (Q, D), device)
     check(cand, "cand", torch.float32, (N, D), device)
-    if D > MAX_D:
-        raise ValueError(f"embedding width {D} over the kernel's {MAX_D}")
     out = torch.empty((Q, N), dtype=torch.float32, device=device)
     if Q == 0 or N == 0:
         return out

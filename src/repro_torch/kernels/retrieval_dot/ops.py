@@ -32,6 +32,6 @@ from .. import registry  # noqa: E402
 
 registry.register(registry.KernelSpec(
     name="retrieval_dot", fn=candidate_scores, modes=(),
-    description="dense two-tower candidate scoring, one warp per candidate "
-                "row against a shared-memory query tile; outside the "
-                "term-query path (hybrid retrieval's stage 2)"))
+    description="dense two-tower candidate scoring, 16 lanes per candidate "
+                "row with four 16-byte loads in flight per lane; outside "
+                "the term-query path (hybrid retrieval's stage 2)"))

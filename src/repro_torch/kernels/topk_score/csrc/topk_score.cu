@@ -7,27 +7,40 @@
 // whose docid range missed it.  The plain PyTorch version of the same
 // function is ../ref.py:score_ref.
 //
-// What bounds it on an H100: memory and launch latency.  The bytes it must
-// move are 8 B per posting (docid and weight, read once) and 4 B per docid
-// of the output (written once); a ranked query over the WSJ1-like stream
-// has up to a few hundred thousand postings, a few MB, about a microsecond
-// at 3.35 TB/s.  The one-hot product the TPU used trades n_docs times more
+// What bounds it on an H100: latency, not bytes.  The bytes it must move
+// are 8 B per posting (docid and weight, read once) and 4 B per docid of
+// the output (written once): a ranked query over the WSJ1-like stream has
+// up to ~290k postings in 1-4 segments over ~99k docids, 2.7 MB, under a
+// microsecond at 3.35 TB/s.  What a launch costs is the chain of dependent
+// loads each block makes before it can add, and how many SMs share the
+// work.  The one-hot product the TPU used trades n_docs times more
 // operations for dense memory access; a GPU scatters instead.
 //
 // What the design does about it, and about determinism:
 //   * a float atomicAdd scatter into device memory would sum each docid's
 //     weights in a different order on each run; instead one CUDA block owns
-//     one tile of kTile docids and accumulates it in shared memory, so no
-//     two blocks touch the same output;
+//     one tile of kTile = 512 docids and builds it in shared memory, so no
+//     two blocks touch the same output.  At ~99k docids that is 193 blocks,
+//     one or two on every SM, all resident at once (2,048-docid tiles gave
+//     49 blocks for 132 SMs; 256-docid tiles were as fast at 4 segments and
+//     slower at 9 and 40, where their blocks make twice the searches);
 //   * the input is a run of segments (one per query term), each with
-//     distinct docids in ascending order.  For each segment in order the
-//     block binary-searches the segment for its tile's [lo, hi) docid range
-//     and adds that slice, then synchronises.  Within a segment no docid
-//     repeats, so the adds of one pass never collide (the shared-memory
-//     atomicAdd only guards a caller that breaks the contract), and across
-//     passes every docid receives its weights in input order: the result
-//     is the same bits on every run and equals the plain version, which
-//     adds segment by segment too;
+//     distinct docids in ascending order.  A tile's slice of a segment is
+//     found by two searches, for the tile's lo and hi docids.  One warp
+//     runs each search: each step its lanes probe 32 evenly spaced entries
+//     and a ballot of those below the key cuts the range 32-fold (four
+//     dependent loads for ~70k postings, where a binary search makes
+//     seventeen).  The 16 warps of a block search eight segments at once;
+//   * up to kChunk segments are staged together: segment j's slice is
+//     scattered into its own shared row part[j][.], zeroed first.  Within
+//     a segment no docid repeats, so no two adds meet (the shared-memory
+//     atomicAdd only guards a caller that breaks the contract) and all the
+//     slices are scattered in one pass, with no barrier between segments.
+//     Then thread t sums column t over the rows in segment order.  A docid
+//     that a segment lacks adds +0.0, which changes no sum here (a sum that
+//     starts at +0.0 never becomes -0.0), so every docid receives its
+//     weights in input order: the result is the same bits on every run and
+//     equals the plain version, which adds segment by segment too;
 //   * each tile is written to device memory once, coalesced, with docid 0
 //     (the padding bucket) written as zero.
 //
@@ -40,16 +53,30 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 2048;   // docids per CUDA block: 8 KB of shared memory
+constexpr int kThreads = 512;
+constexpr int kTile = kThreads;      // docids per CUDA block, one per thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 16;           // segments staged at once: 32 KB of rows
+constexpr int kLoads = 4;            // postings in flight per thread
+constexpr unsigned kFull = 0xffffffffu;
 
-// First index in [l, h) of the ascending segment whose docid is >= key.
-__device__ __forceinline__ int lower_bound(const int32_t* __restrict__ d,
-                                           int l, int h, int key) {
+// First index in [l, h) of the ascending run d whose docid is >= key, found
+// by the whole warp (every lane returns it): each step probes 32 evenly
+// spaced entries, and the count of those below key narrows the range.
+__device__ __forceinline__ int warp_lower_bound(const int32_t* __restrict__ d,
+                                                int l, int h, int key,
+                                                int lane) {
   while (l < h) {
-    const int m = l + ((h - l) >> 1);
-    if (__ldg(d + m) < key) l = m + 1;
-    else h = m;
+    const int step = (h - l + 31) >> 5;
+    const int i = l + lane * step;
+    const bool below = i < h && __ldg(d + i) < key;
+    const int c = __popc(__ballot_sync(kFull, below));
+    if (c == 0) break;                   // d[l] >= key
+    // probes 0 .. c-1 (at l, l + step, ...) are below key; probe c (or h)
+    // is not
+    const int nh = min(h, l + c * step);
+    l += (c - 1) * step + 1;
+    h = nh;
   }
   return l;
 }
@@ -59,26 +86,66 @@ score_kernel(const int32_t* __restrict__ docids,
              const float* __restrict__ weights,
              const int32_t* __restrict__ offsets, int nseg,
              float* __restrict__ out, int n_docs) {
-  __shared__ float acc[kTile];
-  __shared__ int range[2];
+  __shared__ float part[kChunk][kTile];  // one row per staged segment
+  __shared__ int slice[kChunk][2];       // each segment's [a, b) in the tile
+  __shared__ int start[kChunk + 1];      // where each slice begins, flat
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
   const int lo = blockIdx.x * kTile;
   const int hi = min(lo + kTile, n_docs);
-  for (int i = threadIdx.x; i < kTile; i += kThreads) acc[i] = 0.f;
-  for (int s = 0; s < nseg; ++s) {
-    if (threadIdx.x < 2)
-      range[threadIdx.x] = lower_bound(docids, offsets[s], offsets[s + 1],
-                                       threadIdx.x == 0 ? lo : hi);
-    __syncthreads();      // the range is set; the last pass's adds are done
-    const int a = range[0];
-    const int b = range[1];
-    for (int i = a + threadIdx.x; i < b; i += kThreads) {
-      const int d = docids[i];
-      if (d >= lo && d < hi) atomicAdd(&acc[d - lo], weights[i]);
+  float acc = 0.f;
+  for (int s0 = 0; s0 < nseg; s0 += kChunk) {
+    const int ns = min(kChunk, nseg - s0);
+    for (int j = 0; j < ns; ++j) part[j][t] = 0.f;
+    for (int p = warp; p < 2 * ns; p += kWarps) {
+      const int s = s0 + (p >> 1);
+      const int b = warp_lower_bound(docids, offsets[s], offsets[s + 1],
+                                     (p & 1) ? hi : lo, lane);
+      if (lane == 0) slice[p >> 1][p & 1] = b;
     }
-    __syncthreads();      // this pass's adds land before the next pass
+    __syncthreads();      // slices found, rows zeroed
+    if (warp == 0) {      // start[] = exclusive prefix sum of the lengths
+      const int len = lane < ns ? max(0, slice[lane][1] - slice[lane][0])
+                                : 0;
+      int sum = len;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(kFull, sum, off);
+        if (lane >= off) sum += v;
+      }
+      if (lane <= ns) start[lane] = sum - len;
+    }
+    __syncthreads();
+    // every slice of the chunk at once: f runs over their concatenation
+    const int total = start[ns];
+    for (int f0 = 0; f0 < total; f0 += kThreads * kLoads) {
+      int dd[kLoads], jj[kLoads];
+      float ww[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int f = f0 + u * kThreads + t;
+        jj[u] = -1;
+        if (f < total) {
+          int j = 0;
+          while (start[j + 1] <= f) ++j;
+          const int i = slice[j][0] + (f - start[j]);
+          dd[u] = __ldg(docids + i);
+          ww[u] = __ldg(weights + i);
+          jj[u] = j;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u)
+        if (jj[u] >= 0 && dd[u] >= lo && dd[u] < hi)
+          atomicAdd(&part[jj[u]][dd[u] - lo], ww[u]);
+    }
+    __syncthreads();      // every slice has landed
+    for (int j = 0; j < ns; ++j) acc += part[j][t];    // in segment order
+    __syncthreads();      // the rows are read before the next chunk
   }
-  for (int d = lo + threadIdx.x; d < hi; d += kThreads)
-    out[d] = d == 0 ? 0.f : acc[d - lo];
+  const int d = lo + t;
+  if (d < hi) out[d] = d == 0 ? 0.f : acc;
 }
 
 }  // namespace

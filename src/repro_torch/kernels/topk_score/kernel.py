@@ -22,6 +22,9 @@ from ..cuda_args import check, raise_on_error, require_cuda
 #: kernel launches made through :func:`score_kernel`
 launches = 0
 
+#: docids per CUDA block (``csrc/topk_score.cu``'s kTile)
+TILE = 512
+
 
 def _lib():
     fn = build.load("topk_score").ts_launch
@@ -46,6 +49,8 @@ def score_kernel(docids: torch.Tensor, weights: torch.Tensor, n_docs: int,
     check(offsets, "offsets", torch.int32, (offsets.numel(),), device)
     if offsets.numel() < 1:
         raise ValueError("offsets needs at least one bound")
+    if M > 2**31 - 64:
+        raise ValueError(f"{M} postings: the kernel indexes them as int32")
     out = torch.empty(n_docs, dtype=torch.float32, device=device)
     if n_docs == 0:
         return out

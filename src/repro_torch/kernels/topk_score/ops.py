@@ -38,4 +38,4 @@ from .. import registry  # noqa: E402
 registry.register(registry.KernelSpec(
     name="topk_score", fn=score_accumulate, modes=("ranked_tfidf", "bm25"),
     description="deterministic scatter-add of posting weights into the dense "
-                "docid score vector, one CUDA block per docid tile"))
+                "docid score vector, one CUDA block per 512-docid tile"))

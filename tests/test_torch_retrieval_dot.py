@@ -23,6 +23,10 @@ from repro_torch.kernels.retrieval_dot import ops
 from repro_torch.kernels.retrieval_dot.ref import retrieval_dot_ref
 
 SHAPES = [(8, 700, 96), (1, 2048, 256), (17, 333, 64), (3, 1000, 30)]
+#: at the kernel's blocking: n off its 2 rows a warp and 16 a block, d off
+#: its 256-float pass and d % 4 != 0, q past its 8-row query tile
+EDGE_SHAPES = [(1, 7, 256), (1, 4099, 256), (17, 4099, 30), (2, 333, 31),
+               (9, 17, 260)]
 DTYPES = {"f32": (np.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 RTOL, ATOL = 1e-5, 2e-5
@@ -42,7 +46,7 @@ def _inputs(q, n, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("q,n,d", SHAPES)
+@pytest.mark.parametrize("q,n,d", SHAPES + EDGE_SHAPES)
 def test_port_matches_jax_candidate_scores(q, n, d, dtype):
     qv, cv, tq, tc = _inputs(q, n, d, dtype)
     got = ops.candidate_scores(tq, tc)
@@ -94,7 +98,8 @@ def test_registered_outside_the_term_modes():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("q,n,d", SHAPES + [(1, 0, 256)])
+@pytest.mark.parametrize("q,n,d", SHAPES + EDGE_SHAPES + [(1, 0, 256),
+                                                          (2, 333, 4100)])
 def test_cuda_kernel_matches_plain_version(q, n, d, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -106,4 +111,23 @@ def test_cuda_kernel_matches_plain_version(q, n, d, dtype):
     assert torch.equal(first, second)            # bit-identical rerun
     np.testing.assert_allclose(first.cpu().numpy(),
                                retrieval_dot_ref(tq, tc).cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", ["one row", "one float"])
+def test_cuda_kernel_matches_plain_version_at_an_offset_base(offset):
+    """C's base one row along (aligned) or one float along (unaligned: the
+    kernel's scalar loop)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _qv, _cv, tq, tc = _inputs(8, 334, 256, "f32")
+    tq, flat = tq.cuda(), tc.cuda()
+    cand = flat[1:] if offset == "one row" else \
+        flat.flatten()[1:1 + 333 * 256].view(333, 256)
+    first = ops.candidate_scores(tq, cand)
+    assert torch.equal(first, ops.candidate_scores(tq, cand))
+    np.testing.assert_allclose(first.cpu().numpy(),
+                               retrieval_dot_ref(tq, cand).cpu().numpy(),
                                rtol=RTOL, atol=ATOL)

@@ -9,10 +9,15 @@ weight and the two agree exactly; with several, the JAX kernel sums each
 docid's weights by one-hot matrix products tile by tile, the port segment
 by segment, so the scores agree to rtol 1e-6 (float32 sums of up to four
 terms in another order).  Docid 0 is the padding bucket: zero in both.
-``n_docs`` stays at most 2,048, so the interpret mode stays quick.  The
-CUDA kernel is held against the plain version by the ``gpu`` test, which
-runs only where there is a card.
+The tile-edge cases put n_docs at the CUDA kernel's tile (``kernel.TILE``
+docids a block) and one off it, a segment inside one tile and an empty
+segment.  ``n_docs`` stays at most ~3,000, so the interpret mode stays
+quick.  The CUDA kernel is held against the plain version by the ``gpu``
+tests, which run only where there is a card.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +25,7 @@ import pytest
 import torch
 
 from repro.kernels.topk_score.ops import score_accumulate as jax_score
-from repro_torch.kernels.topk_score import ops
+from repro_torch.kernels.topk_score import kernel, ops
 from repro_torch.kernels.topk_score.ref import score_ref, segment_offsets
 
 
@@ -39,6 +44,63 @@ def _postings(nseg, n_docs, seed, with_zero=False):
 
 
 CASES = [(1, 1500, False), (3, 2048, False), (4, 777, True), (2, 40, True)]
+
+
+def _run(rng, lo, hi, n):
+    return np.sort(rng.choice(np.arange(lo, hi), size=n, replace=False))
+
+
+#: n_docs at a multiple of the tile and one off it
+N_DOCS = {"n_docs T-1": lambda t: t - 1, "n_docs T": lambda t: t,
+          "n_docs T+1": lambda t: t + 1, "n_docs 2T-1": lambda t: 2 * t - 1,
+          "n_docs 2T+1": lambda t: 2 * t + 1}
+
+
+def _edge_postings(case):
+    """Postings at the kernel's tile edges (``kernel.TILE`` docids a CUDA
+    block): (docids, weights, offsets, n_docs)."""
+    tile = kernel.TILE
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case in N_DOCS:
+        n_docs = N_DOCS[case](tile)
+        parts = [_run(rng, 1, n_docs, n_docs // 2) for _ in range(3)]
+    elif case == "a segment inside one tile":
+        n_docs = 6 * tile - 3
+        parts = [_run(rng, 1, n_docs, 4 * tile),
+                 _run(rng, 2 * tile + 5, 3 * tile - 5, tile // 3),
+                 _run(rng, 1, n_docs, 5 * tile)]
+    else:                           # an empty segment between full ones
+        n_docs = 5 * tile + 1
+        parts = [_run(rng, 1, n_docs, 3 * tile), _run(rng, 0, 1, 0),
+                 _run(rng, 1, n_docs, 4 * tile)]
+    offsets = np.cumsum([0] + [len(p) for p in parts]).tolist()
+    d = np.concatenate(parts).astype(np.int32)
+    return d, (rng.random(len(d)) * 5).astype(np.float32), offsets, n_docs
+
+
+EDGES = [*N_DOCS, "a segment inside one tile",
+         "an empty segment between full ones"]
+
+
+@pytest.mark.parametrize("case", EDGES)
+def test_port_matches_jax_at_tile_edges(case):
+    d, w, offsets, n_docs = _edge_postings(case)
+    want = np.asarray(jax_score(jnp.asarray(d), jnp.asarray(w), n_docs=n_docs,
+                                interpret=True))
+    dt, wt = torch.from_numpy(d), torch.from_numpy(w)
+    got = ops.score_accumulate(dt, wt, n_docs, offsets=offsets).numpy()
+    assert got.shape == (n_docs,) and got[0] == 0.0
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    # the maximal ascending runs give the same bits as the caller's bounds
+    found = ops.score_accumulate(dt, wt, n_docs).numpy()
+    assert np.array_equal(found.view(np.int32), got.view(np.int32))
+
+
+def test_tile_constants_match_the_cuda_source():
+    src = (Path(kernel.__file__).parent / "csrc" / "topk_score.cu").read_text()
+    assert re.search(r"constexpr int kThreads = (\d+);", src).group(1) == \
+        str(kernel.TILE)
+    assert "constexpr int kTile = kThreads;" in src
 
 
 @pytest.mark.parametrize("nseg,n_docs,with_zero", CASES)
@@ -126,6 +188,28 @@ def test_cuda_kernel_matches_plain_version(nseg, n_docs, with_zero):
     first = score_kernel(dt, wt, n_docs, off)
     second = score_kernel(dt, wt, n_docs, off)
     plain = score_ref(dt, wt, n_docs)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    assert torch.equal(first.cpu().view(torch.int32),
+                       plain.cpu().view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", EDGES + ["16 segments", "17 segments",
+                                          "40 segments"])
+def test_cuda_kernel_matches_plain_version_at_tile_edges(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.topk_score.kernel import score_kernel
+    if case in EDGES:
+        d, w, offsets, n_docs = _edge_postings(case)
+    else:                       # a block stages 16 segments a pass
+        n_docs = 20_000
+        d, w, offsets = _postings(int(case.split()[0]), n_docs, seed=3)
+    dt, wt = torch.from_numpy(d).cuda(), torch.from_numpy(w).cuda()
+    off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    first = score_kernel(dt, wt, n_docs, off)
+    second = score_kernel(dt, wt, n_docs, off)
+    plain = score_ref(dt, wt, n_docs, offsets)
     assert torch.equal(first.view(torch.int32), second.view(torch.int32))
     assert torch.equal(first.cpu().view(torch.int32),
                        plain.cpu().view(torch.int32))
