@@ -5,6 +5,8 @@
     python3 chip_smoke.py --docs 98732     # the Const path at full scale too
     python3 chip_smoke.py --kernels        # phases 1-2 and the kernels at
                                            # the paths' shapes, ~1 min
+    python3 chip_smoke.py --fused-only PT  # fused_query alone on the main
+                                           # path's batches, saved in PT
 
 Phases, each printing its own lines; the first failed check exits non-zero:
 
@@ -25,7 +27,9 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      empty blocks), all exactly; ``retrieval_dot`` (q in 1, 8, 17; d in 30,
      64, 256; n in 0, 333, 2,048; float32 and bf16 unit rows; n off its
      row blocking, d off its 256-float pass, C's base one row and one float
-     along) within ``DENSE_ATOL`` of its plain version;
+     along) within ``DENSE_ATOL`` of its plain version; and
+     ``tests/test_torch_gpu_kernels.py`` (``fused_query`` at the edges of
+     its docid ranges; it imports no jax) in a ``pytest -m gpu`` subprocess;
   3. the Const main path: the first ``--docs`` documents (default
      ``CONST_DOCS``, the cut that keeps the whole run under about 900 s of
      its 1,200 s limit; 98,732 is the full stream) of the WSJ1-like stream
@@ -39,7 +43,10 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      near-equal scores: the host scores in float64); the fused kernel's
      launch count must rise by one per (mode, k) group.  Then the kernel is
      held against its plain version at the main path's shapes and both are
-     timed over ``REPS`` launches.
+     timed, and one engine batch per mode is cut into the engine's own
+     steps (``pack_queries``, ``prepare``, the launch, and the copy back
+     with the rest of the call), timed inside ``Engine.execute_many``
+     (:func:`batch_steps`).
 
      Inside it, Path B, the split decode path: after the first post-freeze
      batch (the delta is non-empty) and before the first delete, one batch
@@ -97,6 +104,11 @@ Plain versions and end-to-end lines are timed call by call (``cuda_ms``,
 host clock).  ``--kernels`` stops after phase 2 and times the kernels that
 have a library call on seeded inputs at the paths' shapes (``topk_score``
 also at 9 and 40 segments); it drives no path and prints no result line.
+``--fused-only PT`` builds only ``fused_query`` and times it on phase 3's
+first prepared batch of 32 queries per mode, read from PT, or first
+written there from a Const engine built as phase 3 builds it (a CRC of
+the batches is printed in both); run in two checkouts on one PT, it
+compares two builds of the kernel on the same inputs.  It drives no path and prints no result line either.
 
 Imports nothing of JAX.  Kernels build into ``src/repro_torch/kernels/_build``.
 """
@@ -109,6 +121,7 @@ import json
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -134,6 +147,7 @@ HOST_RTOL = 1e-5
 DENSE_ATOL = 1e-6              # retrieval_dot vs its plain version on unit
                                # rows: both sum float32 in other orders
 TOP = 10                       # the hybrid path's dense top k
+GPU_TESTS = "tests/test_torch_gpu_kernels.py"   # jax-free kernel cases
 #: kernel -> the TPU kernel it replaces (file:line of the function that
 #: reaches pl.pallas_call in the JAX package)
 REPLACES = {
@@ -254,21 +268,17 @@ def kernel_vs_plain(args, mode) -> float:
     return compare_outputs(mode, first, plain, PARITY_RTOL)
 
 
-def launch_bound(args, mode) -> tuple[float, str, float]:
+def launch_bound(args, mode) -> tuple[float, str]:
     """Least time the card could take for one launch: the larger of the
     bytes it must move over 3.35 TB/s and its float operations over
-    67 TFLOP/s.  Bytes: the packed blocks and per-slot metadata of the
-    occupied slots, nterms, doclens (bm25), the liveness words, one write
-    and one read of the (Q, cap+1) 4-byte accumulator, and the outputs.
-    Operations: the weights of the postings these slots decode.
-
-    Returns ``(bound_ms, bound_by, io_ms)``; ``io_ms`` is the same bound
-    without the accumulator's traffic (inputs read once, outputs written
-    once), which is the card's limit when the accumulator stays in L2."""
+    67 TFLOP/s.  Bytes: each input read once (the packed blocks and
+    per-slot metadata of the occupied slots, nterms, doclens for bm25, the
+    liveness words) and each output written once.  The (Q, cap+1)
+    accumulator is not counted: the kernel keeps it in shared memory.
+    Operations: the weights of the postings these slots decode."""
     from repro_torch.kernels.fused_query.ref import _part_postings
     Q = args["nterms"].shape[0]
     cap = args["cap"]
-    acc_bytes = 2 * Q * (cap + 1) * 4
     nbytes = Q * 4
     postings = 0
     for part in args["parts"]:
@@ -283,12 +293,11 @@ def launch_bound(args, mode) -> tuple[float, str, float]:
     kk = min(K, cap + 1)
     nbytes += Q * (cap + 1) if mode == "conjunctive" else Q * kk * 8
     flops = postings * {"conjunctive": 1, "ranked_tfidf": 3, "bm25": 7}[mode]
-    t_io = nbytes / HBM_BYTES_PER_S * 1e3
-    t_bytes = (nbytes + acc_bytes) / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_OPS_PER_S * 1e3
     if t_bytes >= t_ops:
-        return t_bytes, "bytes", max(t_io, t_ops)
-    return t_ops, "operations", max(t_io, t_ops)
+        return t_bytes, "bytes"
+    return t_ops, "operations"
 
 
 def _queued_run(fn, launches: int, sleep_cycles: int):
@@ -448,6 +457,24 @@ def small_parity(eng, rng, names, probs) -> float:
             f"rerun bit-identical, max |score diff| {e:.3g}")
         err = max(err, e)
     return err
+
+
+def gpu_tests() -> None:
+    """Phase 2: the ``gpu``-marked kernel cases that import no jax, in a
+    pytest subprocess; fails the run on a nonzero exit or a skip."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "gpu", "-p",
+         "no:cacheprovider", GPU_TESTS], cwd=ROOT, capture_output=True,
+        text=True, timeout=900)
+    lines = out.stdout.strip().splitlines() or [""]
+    if out.returncode != 0 or "skipped" in lines[-1]:
+        print(out.stdout[-6000:], out.stderr[-2000:], flush=True)
+        fail(f"{GPU_TESTS}: pytest exit {out.returncode}: {lines[-1]}")
+    say(f"[parity] {GPU_TESTS} (fused_query against its plain version at "
+        f"range edges, R = 1, an empty delta, zeros filling the list, a "
+        f"dead range, ties across an edge, reruns): {lines[-1]} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def unit_rows(g, rows: int, d: int, dev):
@@ -959,15 +986,16 @@ def hybrid_phase(eng, corpus, names, probs, rng) -> dict:
                 retrieval_cand=cand)
 
 
-def main_path(n_docs: int) -> dict:
-    import inspect
-
+def const_engine(n_docs: int, rng, on_delta=None) -> dict:
+    """The Const main path's engine: the first ``n_docs`` documents of the
+    WSJ1-like stream through ``QueryService.ingest_batch`` in batches of
+    256, ``collate_now()`` at 90 %, then 8 deletes per batch.  ``on_delta``
+    (eng, rng, names, probs), if given, runs once after the first
+    post-freeze batch, before any delete; its result is returned as
+    ``split``."""
     import torch
     from repro_torch.data.corpus import WSJ1_LIKE, SyntheticCorpus, term_table
     from repro_torch.engine import Engine
-    from repro_torch.kernels.fused_query import kernel as fq_kernel
-    from repro_torch.kernels.fused_query.kernel import fused_query_kernel
-    from repro_torch.kernels.fused_query.ref import fused_tile
     from repro_torch.serve import QueryService
 
     spec = WSJ1_LIKE.scaled(n_docs)
@@ -978,41 +1006,163 @@ def main_path(n_docs: int) -> dict:
     split = None
     name_len = np.fromiter((len(s) for s in names), np.int64,
                            count=len(names))
-    fq_kernel.launches = 0              # counts from here are the path's
     eng = Engine(B=64, growth="const", delta_compact_frac=None)
     svc = QueryService(eng, max_batch=32, cache_size=0)
     freeze_at = int(n_docs * 0.9)
-    rng = np.random.default_rng(2024)
     text_bytes = 0
     dead: set[int] = set()
     batch: list[list[str]] = []
     t_gen = time.perf_counter()
     collate_s = None
-
-    def flush_docs():
-        svc.ingest_batch(batch)
-        batch.clear()
-
     for ids in corpus.doc_term_ids():
         batch.append([names[i] for i in ids.tolist()])
         text_bytes += int(name_len[ids].sum()) + len(ids)
         done = eng.index.num_docs + len(batch)
         if len(batch) == 256 or done == freeze_at or done == n_docs:
-            flush_docs()
+            svc.ingest_batch(batch)
+            batch.clear()
             if eng.index.num_docs == freeze_at:
                 t0 = time.perf_counter()
                 eng.collate_now()
                 torch.cuda.synchronize()
                 collate_s = time.perf_counter() - t0
             elif eng.index.num_docs > freeze_at:
-                if split is None:           # Path B, before any delete
-                    split = split_path(eng, rng, names, probs)
+                if on_delta is not None and split is None:
+                    split = on_delta(eng, rng, names, probs)
                 for _ in range(8):          # tombstone on the way
                     d = int(rng.integers(1, eng.index.num_docs + 1))
                     if d not in dead:
                         dead.add(d)
                         svc.delete(d)
-    wall_s = time.perf_counter() - t_gen
+    return dict(eng=eng, svc=svc, corpus=corpus, names=names, probs=probs,
+                split=split, freeze_at=freeze_at, collate_s=collate_s,
+                text_bytes=text_bytes, wall_s=time.perf_counter() - t_gen)
+
+
+def batch_steps(eng, qs) -> dict:
+    """One engine batch cut into its steps, on the host's clock, medians of
+    ``REPS`` after two warm-ups.  ``Engine.execute_many`` runs as it is,
+    with the ``pack_queries``, ``prepare`` and kernel wrapper calls that
+    ``fused_execute`` makes each wrapped to synchronize the card before and
+    after and read the clock; "copy back and the rest" is the whole
+    wrapped call less those three (the copy of the output, the host's
+    ``flatnonzero`` or filtering, and the routing around them).  "end to
+    end" is the call unwrapped, with one synchronize after it."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.engine import device_backend
+    from repro_torch.kernels.fused_query import ops
+    timed = ("pack_queries", "prepare", "kernel")
+    steps = {k: [] for k in timed + ("copy back and the rest",
+                                     "end to end")}
+
+    def clocked(label, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            steps[label].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def whole():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.execute_many(qs)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    with mock.patch.object(device_backend, "pack_queries",
+                           clocked("pack_queries",
+                                   device_backend.pack_queries)), \
+            mock.patch.object(ops, "prepare",
+                              clocked("prepare", ops.prepare)), \
+            mock.patch.object(ops, "fused_query_kernel",
+                              clocked("kernel", ops.fused_query_kernel)):
+        for i in range(REPS + 2):
+            total = whole()
+            if any(len(steps[k]) != i + 1 for k in timed):
+                fail("an engine batch did not make one pack_queries, "
+                     "prepare and kernel call")
+            steps["copy back and the rest"].append(
+                total - sum(steps[k][-1] for k in timed))
+    for _ in range(REPS + 2):
+        steps["end to end"].append(whole())
+    return {k: float(np.median(v[2:])) for k, v in steps.items()}
+
+
+def batches_digest(batches: dict) -> str:
+    """A CRC-32 of the prepared batches' slot metadata, printed so that two
+    runs can be seen to time the same batches."""
+    crc = 0
+    for args in batches.values():
+        for part in args["parts"]:
+            for t in part[1:]:
+                crc = zlib.crc32(t.cpu().numpy().tobytes(), crc)
+    return f"{crc:08x}"
+
+
+def fused_only(path: Path, n_docs: int) -> None:
+    """``--fused-only``: the fused kernel alone on the main path's first
+    batch of 32 queries per mode.  The prepared batches are read from
+    ``path`` (``torch.save``); where it does not exist, the Const engine is
+    built as the main path builds it (``n_docs`` documents, a delta,
+    deletes, and the split path's draws from the seed without the split
+    path), so that the batches are the main path's own, and they are
+    written there first.  Each mode's kernel is timed
+    (:func:`device_ms_in_turns`) before any check, then held against its
+    plain version, so that a partial build still prints its times."""
+    import torch
+    if not path.exists():
+        rng = np.random.default_rng(2024)
+        c = const_engine(n_docs, rng, on_delta=lambda eng, rng, names, probs:
+                         [zipf_queries(rng, names, probs, eng, 32, mode)
+                          for mode in MODES])
+        eng = c["eng"]
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({mode: prepared_batch(eng, zipf_queries(
+            rng, c["names"], c["probs"], eng, 32, mode), mode)
+            for mode in MODES}, path)
+        say(f"[fused-only] {eng.index.num_docs} documents, "
+            f"{len(eng.index.tombstones)} deletes; batches written to {path}")
+        del c, eng
+        gc.collect()
+    from repro_torch.kernels.fused_query.kernel import fused_query_kernel
+    batches = torch.load(path, map_location="cuda")
+    say(f"[fused-only] batches {path.name}, digest "
+        f"{batches_digest(batches)}")
+    for mode, args in batches.items():
+        t = device_ms_in_turns(
+            lambda: fused_query_kernel(mode=mode, k=K, **args))
+        bound, _by = launch_bound(args, mode)
+        say(f"[time] fused_query {mode} ({path.name}): "
+            f"Q={args['nterms'].shape[0]} "
+            f"PB={[p[0].shape[1] for p in args['parts']]} cap={args['cap']}: "
+            f"kernel {t['ms']:.4f} ms {turns_text(t)}; bound {bound:.4f} ms")
+    for mode, args in batches.items():
+        e = kernel_vs_plain(args, mode)
+        say(f"[parity] fused_query {mode} ({path.name}): kernel == plain "
+            f"version, rerun bit-identical, max |score diff| {e:.3g}")
+
+
+def main_path(n_docs: int) -> dict:
+    import inspect
+
+    import torch
+    from repro_torch.engine import Engine
+    from repro_torch.kernels.fused_query import kernel as fq_kernel
+    from repro_torch.kernels.fused_query.kernel import fused_query_kernel
+    from repro_torch.kernels.fused_query.ref import fused_tile
+
+    fq_kernel.launches = 0              # counts from here are the path's
+    rng = np.random.default_rng(2024)
+    c = const_engine(n_docs, rng, on_delta=split_path)
+    eng, svc, corpus = c["eng"], c["svc"], c["corpus"]
+    names, probs, split = c["names"], c["probs"], c["split"]
+    freeze_at, collate_s = c["freeze_at"], c["collate_s"]
+    text_bytes, wall_s = c["text_bytes"], c["wall_s"]
     st = eng.stats()
     ingest_s = st.ingest_time_s
     say(f"[ingest] {st.num_docs} docs, {st.num_words} words, "
@@ -1083,35 +1233,32 @@ def main_path(n_docs: int) -> dict:
         f"{time.perf_counter() - t0:.3f} s")
 
     # ---- kernel vs plain at the main path's shapes, and times ---------
-    err, ms, plain_ms, bound, io_bound, e2e = 0.0, {}, {}, {}, {}, {}
+    err, ms, plain_ms, bound, e2e, batches = 0.0, {}, {}, {}, {}, {}
     bound_by = "bytes"
     for qs, mode in zip(groups[:3], MODES):
-        args = prepared_batch(eng, qs, mode)
+        args = batches[mode] = prepared_batch(eng, qs, mode)
         err = max(err, kernel_vs_plain(args, mode))
         t = device_ms_in_turns(
             lambda: fused_query_kernel(mode=mode, k=K, **args))
         ms[mode] = t["ms"]
         plain_ms[mode] = cuda_ms(lambda: fused_tile(mode=mode, k=K, **args),
                                  REPS // 4, warm=1)
-        bound[mode], by, io_bound[mode] = launch_bound(args, mode)
+        bound[mode], by = launch_bound(args, mode)
         if by != "bytes":
             bound_by = by
-        times = []
-        for _ in range(REPS + 2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eng.execute_many(qs)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        e2e[mode] = float(np.median(times[2:]))
+        steps = batch_steps(eng, qs)
+        e2e[mode] = steps.pop("end to end")
         parts = args["parts"]
         say(f"[time] {mode}: Q={args['nterms'].shape[0]} "
             f"PB={[p[0].shape[1] for p in parts]} cap={args['cap']}: "
             f"kernel {ms[mode]:.4f} ms {turns_text(t)}, plain version "
             f"{plain_ms[mode]:.4f} ms (median of {REPS // 4}), bound "
-            f"{bound[mode]:.4f} ms ({io_bound[mode]:.4f} ms without the "
-            f"accumulator's traffic); engine batch end to end "
-            f"{e2e[mode]:.4f} ms (median of {REPS})")
+            f"{bound[mode]:.4f} ms; engine batch end to end "
+            f"{e2e[mode]:.4f} ms; the engine's own steps, each with a "
+            f"synchronize around it: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
+            + f" ms (host clock, medians of {REPS})")
+    say(f"[time] the batches timed above: digest {batches_digest(batches)}")
     mean = lambda d: float(np.mean([d[m] for m in MODES]))   # noqa: E731
     if split is None:
         fail("the stream ended before the split path ran")
@@ -1119,7 +1266,7 @@ def main_path(n_docs: int) -> dict:
     hybrid = hybrid_phase(eng, corpus, names, probs, rng)
     return {"launches": launches, "max_abs_err": err, "ms": mean(ms),
             "plain_ms": mean(plain_ms), "bound_ms": mean(bound),
-            "bound_io_ms": mean(io_bound), "bound_by": bound_by,
+            "bound_by": bound_by,
             "library_ms": None, "split": split, "hybrid": hybrid,
             "index": const_index}
 
@@ -1439,6 +1586,12 @@ def main() -> int:
                     help="build and check every kernel, time the kernels "
                          "that have a library call on seeded inputs at the "
                          "paths' shapes, and stop: no path is driven")
+    ap.add_argument("--fused-only", type=Path, metavar="PT",
+                    help="time the fused kernel alone on the main path's "
+                         "prepared batches, read from PT (written there "
+                         "first from a Const engine of --docs documents "
+                         "where it does not exist), then check it, and "
+                         "stop: no path is driven")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1454,6 +1607,15 @@ def main() -> int:
     from repro_torch.kernels import build
 
     say(f"[card] {card_line()}")
+    if args.fused_only:
+        build.build_all(["fused_query"])
+        for line in build.build_log("fused_query").splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"[build] fused_query: {line.strip()}")
+        fused_only(args.fused_only, args.docs)
+        say(f"[card] {card_line()}")
+        say("[done] --fused-only: no path was driven")
+        return 0
     t0 = time.perf_counter()
     build.build_all()
     say(f"[build] {len(build.SOURCES)} kernels built in "
@@ -1464,6 +1626,7 @@ def main() -> int:
                 say(f"[build] {name}: {line.strip()}")
     small = small_engine()
     small_err = small_parity(*small)
+    gpu_tests()
     term_errs = term_kernel_parity(*small)
     if args.kernels:
         kernel_shapes(small[0].device)
@@ -1504,7 +1667,7 @@ def main() -> int:
         for key in ("launches", "max_abs_err", "parity", "ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms"):
             entry[key] = r[key]
-        for key in ("bound_io_ms", "retrieval_cand", "off_path"):
+        for key in ("retrieval_cand", "off_path"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

@@ -158,4 +158,5 @@ from .. import registry  # noqa: E402
 registry.register(registry.KernelSpec(
     name="fused_query", fn=fused_query, modes=FUSED_MODES,
     description="single-launch decode→score→top-k over resident "
-                "frozen+delta images, one CUDA block per query"))
+                "frozen+delta images, one CUDA block per docid range "
+                "of each query"))

@@ -14,6 +14,9 @@ the plain version by the ``gpu`` test, which runs only where there is a
 card.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -263,3 +266,117 @@ def test_cuda_kernel_matches_plain_version(jax_state, mode):
         assert torch.equal(first[0].cpu(), plain[0].cpu())
         np.testing.assert_allclose(first[1].cpu().numpy(),
                                    plain[1].cpu().numpy(), rtol=1e-6, atol=0)
+
+
+# fused_query.cu's selection: threads per block, and entries a thread's list
+# keeps per round (kThreads, kTop; the warps are kThreads / 32)
+THREADS, KTOP = 512, 16
+WARPS = THREADS // 32
+INT_MAX = np.iinfo(np.int32).max
+
+
+def test_selection_constants_match_the_cuda_source():
+    src = (Path(port_ops.__file__).parent / "csrc" /
+           "fused_query.cu").read_text()
+    assert re.search(r"constexpr int kThreads = (\d+);", src).group(1) == \
+        str(THREADS)
+    assert re.search(r"constexpr int kTop = (\d+);", src).group(1) == \
+        str(KTOP)
+    assert "constexpr int kWarps = kThreads / 32;" in src
+
+
+def _better(s1, d1, s2, d2):
+    """The canonical order: score descending, then docid ascending."""
+    return (s1 > s2) | ((s1 == s2) & (d1 < d2))
+
+
+def _best(s, d, group, m):
+    """Indices of each group's best ``m`` entries, in canonical order."""
+    order = np.lexsort((d, -s, group))
+    g = group[order]
+    rank = np.arange(len(g)) - np.searchsorted(g, g, side="left")
+    return order[rank < m]
+
+
+def _block_top(s, d, kk):
+    """``block_top`` of fused_query.cu on the host: entry i is thread
+    i % THREADS's.  Where kk <= WARPS, entries below a floor (the kk-th
+    best of the warps' best entries; a sentinel, dropping none, when fewer
+    than kk warps have entries) are dropped.  Then rounds of KTOP: each
+    thread lists its best KTOP entries after the last one chosen, each warp
+    merges its lanes' lists, the block merges the warps'; an empty list is
+    filled with (-inf, INT_MAX) sentinels, which no entry ties."""
+    s = s.astype(np.float32)
+    d = d.astype(np.int64)
+    thread = np.arange(len(s)) % THREADS
+    fs, fd = np.float32(-np.inf), INT_MAX
+    if kk <= WARPS:
+        ws = np.full(WARPS, -np.inf, np.float32)
+        wd = np.full(WARPS, INT_MAX, np.int64)
+        i = _best(s, d, thread // 32, 1)
+        ws[thread[i] // 32], wd[thread[i] // 32] = s[i], d[i]
+        rank = _better(ws[None, :], wd[None, :], ws[:, None],
+                       wd[:, None]).sum(axis=1)
+        hit = np.flatnonzero(rank == kk - 1)
+        if hit.size:
+            fs, fd = ws[hit[0]], wd[hit[0]]
+    out_s, out_d = [], []
+    for done in range(0, kk, KTOP):
+        m = min(KTOP, kk - done)
+        ok = _better(s, d, -np.inf, INT_MAX) & ~_better(fs, fd, s, d)
+        if done:
+            ok &= _better(out_s[-1], out_d[-1], s, d)
+        i = np.flatnonzero(ok)
+        i = i[_best(s[i], d[i], thread[i], KTOP)]
+        i = i[_best(s[i], d[i], thread[i] // 32, m)]
+        i = i[_best(s[i], d[i], np.zeros_like(i), m)]
+        out_s += list(s[i]) + [np.float32(-np.inf)] * (m - len(i))
+        out_d += list(d[i]) + [INT_MAX] * (m - len(i))
+    return np.array(out_s, np.float32), np.array(out_d, np.int64)
+
+
+@pytest.mark.parametrize("with_alive", [False, True],
+                         ids=["no-mask", "alive-mask"])
+@pytest.mark.parametrize("k", [3, 10, 40])
+@pytest.mark.parametrize("R", [1, 3, 8])
+@pytest.mark.parametrize("mode", ["ranked_tfidf", "bm25"])
+def test_range_split_top_k_merges_exactly(jax_state, mode, R, k, with_alive):
+    """The CUDA kernel's selection, on the CPU: cut the plain version's
+    dense scores into docid ranges by the kernel's rule (``ranges_for``),
+    take each range's top kk by a host mirror of the kernel's
+    ``block_top`` (its floor, rounds and sentinels: k = 3 has a floor,
+    k = 40 three rounds), and merge the range lists with it: the result is
+    the plain version's top kk, docids and score bits."""
+    from repro_torch.kernels.fused_query.kernel import ranges_for
+    e = jax_state
+    images = tuple(_port_image(i) for i in e.resident.images)
+    qt, qm = _queries(e, seed=13)
+    _, kw = _kw(e, mode, with_alive)
+    args = port_ops.prepare(images, torch.from_numpy(qt),
+                            torch.from_numpy(qm), mode=mode,
+                            max_blocks=_caps(e.resident.images, qt, qm), **kw)
+    cap = args["cap"]
+    kk = min(k, cap + 1)
+    full_d, full_s = port_ref.fused_tile(mode=mode, k=cap + 1, **args)
+    want_d, want_s = port_ref.fused_tile(mode=mode, k=k, **args)
+    Q = qt.shape[0]
+    dense = torch.zeros((Q, cap + 1), dtype=torch.float32)
+    dense.scatter_(1, full_d.long(), full_s)
+    # the SM count for which the kernel's rule asks for R ranges for Q
+    # queries (it may cut them to as many as their width needs)
+    ranges, W = ranges_for(Q, cap, n_sm=R * Q // 2)
+    assert (ranges - 1) * W < cap + 1 <= ranges * W
+
+    for q in range(Q):
+        s = dense[q].numpy()
+        cand_s, cand_d = [], []
+        for r in range(ranges):
+            d = np.arange(r * W, min((r + 1) * W, cap + 1))
+            rs, rd = _block_top(s[d], d, kk)
+            cand_s.append(rs)
+            cand_d.append(rd)
+        got_s, got_d = _block_top(np.concatenate(cand_s),
+                                  np.concatenate(cand_d), kk)
+        assert np.array_equal(got_d, want_d[q].numpy())
+        assert np.array_equal(got_s.view(np.int32),
+                              want_s[q].numpy().view(np.int32))
