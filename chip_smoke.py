@@ -7,6 +7,8 @@
                                            # the paths' shapes, ~1 min
     python3 chip_smoke.py --fused-only PT  # fused_query alone on the main
                                            # path's batches, saved in PT
+    python3 chip_smoke.py --term-ab DIR    # dvbyte_decode and intersect
+                                           # against another revision's
 
 Phases, each printing its own lines; the first failed check exits non-zero:
 
@@ -18,7 +20,8 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      ``fused_query`` on a small engine (seeded Zipf stream, a freeze
      mid-stream, a delta, deletes; conjunctive bitmaps equal, ranked
      docids equal, scores within rtol 1e-6); ``intersect`` (empty lists,
-     disjoint ranges, PAD entries, lengths that are not multiples of 32),
+     disjoint ranges, PAD entries, lengths that are not multiples of 32,
+     three further lists in one launch),
      ``topk_score`` (an empty input, docid 0 present, one and several
      segments, n_docs at its 512-docid tiles and one off, a segment inside
      one tile, an empty segment, docids past n_docs, 16, 17 and 40
@@ -29,7 +32,10 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      row blocking, d off its 256-float pass, C's base one row and one float
      along) within ``DENSE_ATOL`` of its plain version; and
      ``tests/test_torch_gpu_kernels.py`` (``fused_query`` at the edges of
-     its docid ranges; it imports no jax) in a ``pytest -m gpu`` subprocess;
+     its docid ranges) and ``tests/test_torch_gpu_term_kernels.py``
+     (``dvbyte_decode`` on chain blocks and constructed rows, ``intersect``
+     at its tile and buffer edges with 1-9 further lists), which import no
+     jax, in a ``pytest -m gpu`` subprocess;
   3. the Const main path: the first ``--docs`` documents (default
      ``CONST_DOCS``, the cut that keeps the whole run under about 900 s of
      its 1,200 s limit; 98,732 is the full stream) of the WSJ1-like stream
@@ -52,8 +58,11 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      batch (the delta is non-empty) and before the first delete, one batch
      of 32 queries per mode through ``DeviceBackend(use_fused=False)`` —
      one ``query_step`` per image, each decoding with the ``dvbyte_decode``
-     kernel (6 launches) — held against the host backend; then the decode
-     kernel is timed at the frozen image's shapes.
+     kernel (6 launches) — held against the host backend; then each mode's
+     batch is timed on the host's clock with the device time of its two
+     decode launches, and the decode kernel at the frozen image's shapes
+     beside its bound (the bounds of every block, the bytes of the
+     non-empty ones, the outputs).
 
      Then, on the same engine (frozen image, delta, deletes), the hybrid
      retrieval path: the two-tower model at full width (two 2,000,384 x 256
@@ -85,9 +94,12 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      queries per mode, unforced (the planner's kernel/host split is
      printed) and then forced to ``backend="kernel"``.  Every answer is held
      against the host backend, the ``intersect`` and ``topk_score`` launch
-     counts must equal the expected ones, and each kernel is timed at the
-     round's largest shapes beside its plain version, its bound and the one
-     PyTorch call that computes the same function; then ``topk_score`` on
+     counts must equal the expected ones (one ``intersect`` launch per
+     kernel-served conjunctive query of two or more terms, all with
+     postings), and each kernel is timed at the round's largest shapes
+     beside its plain version, its bound and the one PyTorch call that
+     computes the same function (``intersect`` also beside an empty kernel
+     on its grid, the launch floor); then ``topk_score`` on
      seeded inputs of 9 and 40 segments over the same docids (off the
      path: a ranked query has 1-4 terms);
   5. one JSON line listing each kernel with its launches, parity error,
@@ -108,7 +120,12 @@ also at 9 and 40 segments); it drives no path and prints no result line.
 first prepared batch of 32 queries per mode, read from PT, or first
 written there from a Const engine built as phase 3 builds it (a CRC of
 the batches is printed in both); run in two checkouts on one PT, it
-compares two builds of the kernel on the same inputs.  It drives no path and prints no result line either.
+compares two builds of the kernel on the same inputs.  ``--term-ab DIR``
+builds another revision's ``dvbyte_decode.cu`` and ``intersect.cu`` (put
+in DIR) beside this checkout's and times both in turns on Path B's decode
+input (saved in DIR) and a seeded intersect case at Path A's shape, with
+one and three further lists; then checks both.  Neither drives a path or
+prints a result line.
 
 Imports nothing of JAX.  Kernels build into ``src/repro_torch/kernels/_build``.
 """
@@ -147,7 +164,9 @@ HOST_RTOL = 1e-5
 DENSE_ATOL = 1e-6              # retrieval_dot vs its plain version on unit
                                # rows: both sum float32 in other orders
 TOP = 10                       # the hybrid path's dense top k
-GPU_TESTS = "tests/test_torch_gpu_kernels.py"   # jax-free kernel cases
+#: the jax-free kernel cases, run on the card in phase 2
+GPU_TESTS = ("tests/test_torch_gpu_kernels.py",
+             "tests/test_torch_gpu_term_kernels.py")
 #: kernel -> the TPU kernel it replaces (file:line of the function that
 #: reaches pl.pallas_call in the JAX package)
 REPLACES = {
@@ -320,24 +339,29 @@ def _queued_run(fn, launches: int, sleep_cycles: int):
     return a.elapsed_time(b) / launches, host, queued
 
 
-def device_ms_in_turns(kernel, library=None) -> dict:
-    """Device time per call of ``kernel`` and of the ``library`` call that
-    computes the same function, without the host's enqueue time.
+def device_ms_in_turns(kernel, library=None, floor=None) -> dict:
+    """Device time per call of ``kernel``, of the ``library`` call that
+    computes the same function and of ``floor`` (an empty kernel on the
+    kernel's grid), without the host's enqueue time.
 
     Each run enqueues ``LAUNCHES`` back-to-back calls between two CUDA
     events, behind a sleep kernel long enough that the card starts on them
     only after the last is enqueued (the sleep doubles until it is).  The
     two alternate in turns (kernel, library, library, kernel), ``RUNS``
-    runs a turn; each turn gives its median, each callable the mean of its
+    runs a turn (with a floor: kernel, library, floor, floor, library,
+    kernel); each turn gives its median, each callable the mean of its
     two turns.  The host's enqueue time per call is reported apart.  A
     call that waits for the card itself (its runs cannot be queued) is
     timed in runs all the same, and its time holds the host's; ``waits``
-    names it.  Returns ``ms``, ``library_ms`` (None without a library
-    call), ``turns``, ``waits`` and ``host_ms`` (label -> median)."""
+    names it.  Returns ``ms``, ``library_ms`` and ``floor_ms`` (None
+    where not given), ``order``, ``turns``, ``waits`` and ``host_ms``
+    (label -> median)."""
     import torch
     fns = {"kernel": kernel}
     if library is not None:
         fns["library"] = library
+    if floor is not None:
+        fns["floor"] = floor
     for fn in fns.values():
         for _ in range(3):
             fn()
@@ -362,6 +386,7 @@ def device_ms_in_turns(kernel, library=None) -> dict:
     dev = {k: float(np.mean([t for lab, t in zip(order, turns) if lab == k]))
            for k in fns}
     return {"ms": dev["kernel"], "library_ms": dev.get("library"),
+            "floor_ms": dev.get("floor"), "order": order,
             "turns": turns, "waits": sorted(waits),
             "host_ms": {k: float(np.median(v)) for k, v in host.items()}}
 
@@ -375,13 +400,31 @@ def turns_text(t: dict, library: str = "library") -> str:
         how += (f"; {name} waits for the card within a call, so its runs "
                 f"hold the host's time too")
     turns = " / ".join(f"{x:.4f}" for x in t["turns"])
+    names = ", ".join({"library": library, "floor": "empty kernel"}.get(
+        lab, lab) for lab in t["order"])
     if t["library_ms"] is None:
-        return (f"(kernel, kernel: {turns}; {how}; host ms per call to "
+        return (f"({names}: {turns}; {how}; host ms per call to "
                 f"enqueue {t['host_ms']['kernel']:.4f})")
-    return (f"in turns (kernel, {library}, {library}, kernel: {turns}; {how}); "
+    return (f"in turns ({names}: {turns}; {how}); "
             f"kernel/{library} {t['ms'] / t['library_ms']:.3f}; host ms per "
             f"call to enqueue: kernel {t['host_ms']['kernel']:.4f}, {library} "
             f"{t['host_ms']['library']:.4f}")
+
+
+def host_ms(fn, reps: int, warm: int = 2) -> float:
+    """Median time of ``fn`` over ``reps`` calls on the host's clock, each
+    ending in ``torch.cuda.synchronize()``: what a caller waits."""
+    import torch
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
 
 
 def cuda_ms(fn, reps: int, warm: int = 3) -> float:
@@ -465,15 +508,21 @@ def gpu_tests() -> None:
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-m", "gpu", "-p",
-         "no:cacheprovider", GPU_TESTS], cwd=ROOT, capture_output=True,
+         "no:cacheprovider", *GPU_TESTS], cwd=ROOT, capture_output=True,
         text=True, timeout=900)
     lines = out.stdout.strip().splitlines() or [""]
     if out.returncode != 0 or "skipped" in lines[-1]:
         print(out.stdout[-6000:], out.stderr[-2000:], flush=True)
-        fail(f"{GPU_TESTS}: pytest exit {out.returncode}: {lines[-1]}")
-    say(f"[parity] {GPU_TESTS} (fused_query against its plain version at "
-        f"range edges, R = 1, an empty delta, zeros filling the list, a "
-        f"dead range, ties across an edge, reruns): {lines[-1]} "
+        fail(f"{' '.join(GPU_TESTS)}: pytest exit {out.returncode}: "
+             f"{lines[-1]}")
+    say(f"[parity] {' '.join(GPU_TESTS)} (fused_query at its range edges, "
+        f"R = 1, an empty delta, zeros filling the list, a dead range, ties "
+        f"across an edge; dvbyte_decode on an engine's chain blocks and "
+        f"constructed rows, NB = 1 and off a warp's 2 and a CTA's 8, "
+        f"B < 64, an "
+        f"unaligned base; intersect with empty lists, PAD, a below or above "
+        f"b, windows across tiles and past the buffer, 1-9 further lists; "
+        f"each against its plain version, reruns): {lines[-1]} "
         f"({time.perf_counter() - t0:.1f} s)")
 
 
@@ -504,6 +553,14 @@ def exact_and_repeatable(name, first, second, plain) -> float:
     return err
 
 
+def concat_lists(lists):
+    """Sorted int32 lists on one device -> (their concatenation, the
+    (n + 1,) int32 bounds of each), as the kernel backend packs them."""
+    import torch
+    off = np.cumsum([0] + [int(x.numel()) for x in lists]).astype(np.int32)
+    return torch.cat(lists), torch.from_numpy(off).to(lists[0].device)
+
+
 def term_kernel_parity(eng, rng, names, probs) -> dict:
     """Phase 2 for the term path's per-op kernels, at small sizes and edge
     cases; returns name -> largest absolute difference."""
@@ -513,7 +570,8 @@ def term_kernel_parity(eng, rng, names, probs) -> dict:
     from repro_torch.engine.device_backend import pack_queries
     from repro_torch.kernels.dvbyte_decode.kernel import dvbyte_decode_kernel
     from repro_torch.kernels.intersect.kernel import intersect_kernel
-    from repro_torch.kernels.intersect.ref import PAD, intersect_ref
+    from repro_torch.kernels.intersect.ref import (PAD, intersect_all_ref,
+                                                   intersect_ref)
     from repro_torch.kernels.topk_score.kernel import score_kernel
     from repro_torch.kernels.topk_score.ref import score_ref
     dev = eng.device
@@ -526,19 +584,30 @@ def term_kernel_parity(eng, rng, names, probs) -> dict:
     pad = torch.full((40,), PAD, dtype=torch.int32, device=dev)
     none = torch.zeros(0, dtype=torch.int32, device=dev)
     cases = {
-        "empty a": (none, srt(50, 1, 100)),
-        "empty b": (srt(50, 1, 100), none),
-        "disjoint": (srt(300, 1, 1000), srt(300, 2000, 3000)),
+        "empty a": (none, [srt(50, 1, 100)]),
+        "empty b": (srt(50, 1, 100), [none]),
+        "disjoint": (srt(300, 1, 1000), [srt(300, 2000, 3000)]),
         "PAD entries": (torch.cat([srt(200, 1, 900), pad]),
-                        torch.cat([srt(400, 1, 900), pad[:25]])),
-        "lengths 33 and 61": (srt(100, 1, 300)[:33], srt(200, 1, 300)[:61]),
-        "overlap 5k/9k": (srt(5000, 1, 40000), srt(9000, 1, 40000)),
+                        [torch.cat([srt(400, 1, 900), pad[:25]])]),
+        "lengths 33 and 61": (srt(100, 1, 300)[:33],
+                              [srt(200, 1, 300)[:61]]),
+        "overlap 5k/9k": (srt(5000, 1, 40000), [srt(9000, 1, 40000)]),
+        "three further lists": (srt(5000, 1, 40000),
+                                [srt(n, 1, 40000) for n in (9000, 20000,
+                                                            30000)]),
     }
     errs = {"intersect": 0.0}
-    for a, b in cases.values():
+    for a, lists in cases.values():
+        if len(lists) == 1:
+            got = (intersect_kernel(a, lists[0]),
+                   intersect_kernel(a, lists[0]))
+            plain = intersect_ref(a, lists[0])
+        else:
+            b, off = concat_lists(lists)
+            got = intersect_kernel(a, b, off), intersect_kernel(a, b, off)
+            plain = intersect_all_ref(a, b, off)
         errs["intersect"] = max(errs["intersect"], exact_and_repeatable(
-            "intersect", intersect_kernel(a, b), intersect_kernel(a, b),
-            intersect_ref(a, b)))
+            "intersect", *got, plain))
     say(f"[parity] intersect: kernel == plain version, rerun bit-identical, "
         f"on {', '.join(cases)}")
 
@@ -748,11 +817,28 @@ def split_path(eng, rng, names, probs) -> dict:
         f"delta {res.delta_blocks} blocks, chain caps (frozen, delta) "
         f"{res.max_blocks}; dvbyte_decode launches {launches}; all answers "
         f"agree with the host backend")
-    # the decode kernel at the frozen image's shapes: NB = Q * T * cap
-    _live, qt, qm, _caps = pack_queries(eng, res, groups[1], MODES[1])
-    blocks, start, end = gather_chains(res.images[0], qt, qm,
-                                       res.max_blocks[0])
+    # each mode's batch on the host's clock, and the device time of its
+    # two decode launches
     F = eng.index.F
+    shares = {}
+    for mode, qs in zip(MODES, groups):
+        _live, qt, qm, _caps = pack_queries(eng, res, qs, mode)
+        inputs = [gather_chains(img, qt, qm, mb)
+                  for img, mb in zip(res.images, res.max_blocks)]
+        dec = [device_ms_in_turns(lambda x=x: dvbyte_decode_kernel(*x, F))
+               for x in inputs]
+        batch = host_ms(lambda: split.execute_many(qs), 5)
+        shares[mode] = sum(t["ms"] for t in dec) / batch
+        say(f"[time] split path {mode}: a batch of 32 through "
+            f"DeviceBackend(use_fused=False) {batch:.4f} ms (host clock "
+            f"ending in torch.cuda.synchronize(), median of 5); its decode "
+            f"launches (frozen NB={inputs[0][0].shape[0]}, delta "
+            f"NB={inputs[1][0].shape[0]}) {dec[0]['ms']:.4f} + "
+            f"{dec[1]['ms']:.4f} ms device time, {shares[mode]:.4f} of the "
+            f"batch")
+        if mode == MODES[1]:
+            blocks, start, end = inputs[0]
+    # the decode kernel at the frozen image's shapes: NB = Q * T * cap
     err = exact_and_repeatable(
         "dvbyte_decode", dvbyte_decode_kernel(blocks, start, end, F),
         dvbyte_decode_kernel(blocks, start, end, F),
@@ -763,15 +849,32 @@ def split_path(eng, rng, names, probs) -> dict:
     plain_ms = cuda_ms(lambda: decode_blocks(blocks, start, end, F),
                        REPS // 4, warm=1)
     NB, B = blocks.shape
-    bound = bound_ms(NB * B + 8 * NB + 9 * NB * B)
+    bound, every, busy = decode_bound(start, end, B)
     say(f"[time] dvbyte_decode: NB={NB} (Q={qt.shape[0]} T={qt.shape[1]} "
-        f"cap={res.max_blocks[0]}) B={B}: kernel {ms:.4f} ms "
-        f"{turns_text(t)}, plain version {plain_ms:.4f} ms (median of "
-        f"{REPS // 4}), bound {bound:.4f} ms ({NB * B + 8 * NB} bytes in, {9 * NB * B} "
-        f"out); parity exact, rerun bit-identical")
+        f"cap={res.max_blocks[0]}) B={B}, {busy} of them non-empty: kernel "
+        f"{ms:.4f} ms {turns_text(t)}, plain version {plain_ms:.4f} ms "
+        f"(median of {REPS // 4}); bound {bound:.4f} ms ({8 * NB + B * busy} "
+        f"bytes in: the bounds of every block, the bytes of the non-empty "
+        f"ones; {9 * NB * B} out), kernel at {bound / ms:.3f} of it; "
+        f"counting every block's bytes read, {every:.4f} ms; parity exact, "
+        f"rerun bit-identical")
     return {"launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": None}
+            "library_ms": None, "nonempty_rows": busy,
+            "bound_ms_every_row": every, "decode_share": shares}
+
+
+def decode_bound(start, end, B: int) -> tuple[float, float, int]:
+    """``dvbyte_decode``'s least time in ms for these bounds: the 8 bytes
+    of ``start``/``end`` of every block, the B bytes only of the blocks
+    with end > start (the kernel reads no others), 9 bytes written per
+    byte position; the same with every block's bytes read; and the count
+    of non-empty blocks."""
+    NB = start.numel()
+    busy = int((end.clamp(max=B) > start.clamp(min=0)).sum())
+    out = 9 * NB * B
+    return (bound_ms(8 * NB + B * busy + out),
+            bound_ms(8 * NB + B * NB + out), busy)
 
 
 def dot_bound(q: int, n: int, d: int) -> tuple[float, str]:
@@ -1147,6 +1250,151 @@ def fused_only(path: Path, n_docs: int) -> None:
             f"version, rerun bit-identical, max |score diff| {e:.3g}")
 
 
+class _Captured(Exception):
+    """Stops :func:`const_engine` once ``on_delta`` has what it needs."""
+
+
+def split_decode_input(n_docs: int):
+    """Path B's timed decode input, (blocks, start, end, F): the frozen
+    image's chain blocks for the split path's ranked batch, from a Const
+    engine built as phase 3 builds it (the same documents and draws), the
+    stream stopped right after."""
+    from repro_torch.core.device_index import gather_chains
+    from repro_torch.engine.device_backend import pack_queries
+
+    def capture(eng, rng, names, probs):
+        groups = [zipf_queries(rng, names, probs, eng, 32, mode)
+                  for mode in MODES]
+        res = eng.resident
+        res.refresh()
+        _live, qt, qm, _caps = pack_queries(eng, res, groups[1], MODES[1])
+        raise _Captured(*gather_chains(res.images[0], qt, qm,
+                                       res.max_blocks[0]), eng.index.F)
+
+    try:
+        const_engine(n_docs, np.random.default_rng(2024), on_delta=capture)
+    except _Captured as c:
+        return c.args
+    fail("the stream ended before the split path's batch")
+
+
+def term_ab(folder: Path, n_docs: int) -> None:
+    """``--term-ab DIR``: the ``dvbyte_decode`` and ``intersect`` kernels
+    of another revision (``DIR/dvbyte_decode.cu`` and ``DIR/intersect.cu``,
+    each with the one-list C interface of that revision) against this
+    checkout's, on one card, in turns (other, this, this, other) on the
+    same inputs: Path B's frozen-image decode input
+    (:func:`split_decode_input`, saved in ``DIR/inputs.pt`` the first time)
+    and the seeded intersect case at Path A's round-2 shape
+    (:func:`intersect_inputs`) with one and three further lists, where the
+    other revision makes one launch per list and ANDs the flags as its
+    kernel backend did.  Both revisions' sources build together under
+    other library names.  Times first, then both are held against the
+    plain versions; a CRC of the inputs is printed.  Drives no path."""
+    import ctypes
+
+    import torch
+    from repro_torch.core.device_index import decode_blocks
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dvbyte_decode.kernel import dvbyte_decode_kernel
+    from repro_torch.kernels.intersect.kernel import intersect_kernel
+    from repro_torch.kernels.intersect.ref import intersect_all_ref
+    libs = build.build_sources({
+        "dvbyte_decode": build.SOURCES["dvbyte_decode"],
+        "intersect": build.SOURCES["intersect"],
+        "other_dvbyte_decode": folder / "dvbyte_decode.cu",
+        "other_intersect": folder / "intersect.cu"})
+    for tag, path in libs.items():
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"[build] {tag}: {line.strip()}")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    old_dv = ctypes.CDLL(str(libs["other_dvbyte_decode"])).dv_launch
+    old_dv.argtypes, old_dv.restype = [p, p, p, i, i, i, p, p, p, p], i
+    old_ix = ctypes.CDLL(str(libs["other_intersect"])).ix_launch
+    old_ix.argtypes, old_ix.restype = [p, i, p, i, p, p], i
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def other_decode(blocks, start, end, F):
+        NB, B = blocks.shape
+        out = (torch.empty((NB, B), dtype=torch.int32, device=blocks.device),
+               torch.empty((NB, B), dtype=torch.int32, device=blocks.device),
+               torch.empty((NB, B), dtype=torch.bool, device=blocks.device))
+        rc = old_dv(blocks.data_ptr(), start.data_ptr(), end.data_ptr(), NB,
+                    B, F, *(t.data_ptr() for t in out), stream)
+        if rc:
+            fail(f"the other revision's dvbyte_decode: CUDA error {rc}")
+        return out
+
+    def other_intersect(a, lists):
+        flags = None
+        for b in lists:
+            hit = torch.empty(a.shape, dtype=torch.bool, device=a.device)
+            rc = old_ix(a.data_ptr(), a.numel(), b.data_ptr(), b.numel(),
+                        hit.data_ptr(), stream)
+            if rc:
+                fail(f"the other revision's intersect: CUDA error {rc}")
+            flags = hit if flags is None else flags.__iand__(hit)
+        return flags
+
+    pt = folder / "inputs.pt"
+    if not pt.exists():
+        blocks, start, end, F = split_decode_input(n_docs)
+        torch.save({"blocks": blocks, "start": start, "end": end, "F": F},
+                   pt)
+        say(f"[term-ab] Path B's decode input written to {pt}")
+        gc.collect()
+    saved = torch.load(pt, map_location="cuda")
+    blocks, start, end, F = (saved[k] for k in ("blocks", "start", "end",
+                                                 "F"))
+    a, lists = intersect_inputs(blocks.device)
+    crc = 0
+    for t in (blocks, start, end, a, *lists):
+        crc = zlib.crc32(t.cpu().numpy().tobytes(), crc)
+    NB, B = blocks.shape
+    bound, every, busy = decode_bound(start, end, B)
+    say(f"[term-ab] inputs {pt.name}: decode NB={NB} B={B} ({busy} "
+        f"non-empty) F={F}; intersect |a|={a.numel()}, lists "
+        f"{[int(x.numel()) for x in lists]}; digest {crc:08x}")
+    t = device_ms_in_turns(lambda: other_decode(blocks, start, end, F),
+                           lambda: dvbyte_decode_kernel(blocks, start, end,
+                                                        F))
+    say(f"[time] dvbyte_decode A/B: other revision {t['ms']:.4f} ms, this "
+        f"checkout {t['library_ms']:.4f} ms (turns other, this, this, "
+        f"other: {' / '.join(f'{x:.4f}' for x in t['turns'])}; device ms "
+        f"per call in runs of {LAUNCHES}, medians of {RUNS} runs a turn); "
+        f"bound {bound:.4f} ms ({every:.4f} counting every block's bytes "
+        f"read): this checkout at {bound / t['library_ms']:.3f} of it")
+    for n in (1, 3):
+        b, off = concat_lists(lists[:n])
+        t = device_ms_in_turns(lambda: other_intersect(a, lists[:n]),
+                               lambda: intersect_kernel(a, b, off))
+        bound = bound_ms(4 * a.numel() + 4 * b.numel() + a.numel())
+        say(f"[time] intersect A/B, {n} further list(s): other revision "
+            f"({n} launch(es){' and the ANDs' if n > 1 else ''}) "
+            f"{t['ms']:.4f} ms, this checkout (one launch) "
+            f"{t['library_ms']:.4f} ms (turns other, this, this, other: "
+            f"{' / '.join(f'{x:.4f}' for x in t['turns'])}); bound "
+            f"{bound:.6f} ms")
+    plain = decode_blocks(blocks, start, end, F)
+    exact_and_repeatable("dvbyte_decode (other revision)",
+                         other_decode(blocks, start, end, F),
+                         other_decode(blocks, start, end, F), plain)
+    exact_and_repeatable("dvbyte_decode",
+                         dvbyte_decode_kernel(blocks, start, end, F),
+                         dvbyte_decode_kernel(blocks, start, end, F), plain)
+    for n in (1, 3):
+        b, off = concat_lists(lists[:n])
+        plain = intersect_all_ref(a, b, off)
+        exact_and_repeatable("intersect (other revision)",
+                             other_intersect(a, lists[:n]),
+                             other_intersect(a, lists[:n]), plain)
+        exact_and_repeatable("intersect", intersect_kernel(a, b, off),
+                             intersect_kernel(a, b, off), plain)
+    say("[parity] term-ab: both revisions' dvbyte_decode and intersect == "
+        "plain version bit for bit, reruns bit-identical")
+
+
 def main_path(n_docs: int) -> dict:
     import inspect
 
@@ -1278,17 +1526,20 @@ def main_path(n_docs: int) -> dict:
 
 def expected_kernel_launches(eng, queries, backends) -> tuple[int, int]:
     """(intersect, topk_score) launches the kernel backend makes for the
-    kernel-served queries among ``queries``: lists − 1 per conjunctive query
-    whose terms all have postings (tombstoned ones included), one per ranked
-    query with a live posting."""
+    kernel-served queries among ``queries``: one per conjunctive query of
+    two or more terms that all have postings (tombstoned ones included),
+    for all its further lists at once; one per ranked query with a live
+    posting."""
     ix = ts = 0
     for q, b in zip(queries, backends):
         if b != "kernel":
             continue
         tids = [eng.term_id(t) for t in q.terms]
         if q.mode == "conjunctive":
-            if all(t is not None and eng._appended_fts[t] > 0 for t in tids):
-                ix += len(tids) - 1
+            if len(tids) > 1 and all(t is not None
+                                     and eng._appended_fts[t] > 0
+                                     for t in tids):
+                ix += 1
         elif any(t is not None and eng._fts[t] > 0 for t in tids):
             ts += 1
     return ix, ts
@@ -1336,24 +1587,44 @@ def serve_round(eng, svc, groups, label: str) -> dict:
     return got
 
 
-def time_intersect(label: str, a, b) -> dict:
-    """``intersect`` at one input: the kernel against ``torch.isin`` in
-    turns, its plain version and its bound.  ``torch.isin`` waits for the
-    card within a call, so its time holds the host's (the line says so)."""
+def time_intersect(label: str, a, lists) -> dict:
+    """``intersect`` of ``a`` against the sorted ``lists`` in one launch:
+    the kernel against the one PyTorch call per list (``torch.isin``, ANDed)
+    and an empty kernel on the same grid (the launch floor) in turns, its
+    plain version and its bound.  ``torch.isin`` waits for the card within
+    a call, so its time holds the host's (the line says so)."""
     import torch
-    from repro_torch.kernels.intersect.kernel import intersect_kernel
-    from repro_torch.kernels.intersect.ref import intersect_ref
-    t = device_ms_in_turns(lambda: intersect_kernel(a, b),
-                           lambda: torch.isin(a, b))
-    plain = cuda_ms(lambda: intersect_ref(a, b), REPS)
+    from repro_torch.kernels.intersect.kernel import (empty_launch,
+                                                      intersect_kernel)
+    from repro_torch.kernels.intersect.ref import (intersect_all_ref,
+                                                   intersect_ref)
+    if len(lists) == 1:
+        b, off = lists[0], None
+        plain_fn = lambda: intersect_ref(a, b)                # noqa: E731
+    else:
+        b, off = concat_lists(lists)
+        bounds = off.tolist()
+        plain_fn = lambda: intersect_all_ref(a, b, bounds)    # noqa: E731
+
+    def library():
+        hit = torch.isin(a, lists[0])
+        for x in lists[1:]:
+            hit &= torch.isin(a, x)
+        return hit
+
+    t = device_ms_in_turns(lambda: intersect_kernel(a, b, off), library,
+                           lambda: empty_launch(a.numel(), a.device))
+    plain = cuda_ms(plain_fn, REPS)
     bound = bound_ms(4 * a.numel() + 4 * b.numel() + a.numel())
-    say(f"[time] {label} intersect: |a|={a.numel()} |b|={b.numel()}: kernel "
-        f"{t['ms']:.4f} ms, torch.isin {t['library_ms']:.4f} ms "
+    say(f"[time] {label} intersect: |a|={a.numel()}, {len(lists)} further "
+        f"list(s) of {[int(x.numel()) for x in lists]}: kernel "
+        f"{t['ms']:.4f} ms, torch.isin {t['library_ms']:.4f} ms, empty "
+        f"kernel on the same grid {t['floor_ms']:.4f} ms "
         f"{turns_text(t, 'torch.isin')}; plain version {plain:.4f} ms "
-        f"(median of {REPS}); bound {bound:.6f} ms; parity exact, rerun "
-        f"bit-identical")
+        f"(median of {REPS}); bound {bound:.6f} ms (bytes); parity exact, "
+        f"rerun bit-identical")
     return dict(ms=t["ms"], plain_ms=plain, library_ms=t["library_ms"],
-                bound_ms=bound)
+                bound_ms=bound, floor_ms=t["floor_ms"])
 
 
 def time_score(label: str, d, w, n: int, offsets) -> dict:
@@ -1422,7 +1693,8 @@ def time_round(eng, groups, label: str) -> dict:
     import torch
     from repro_torch.engine import Query
     from repro_torch.kernels.intersect.kernel import intersect_kernel
-    from repro_torch.kernels.intersect.ref import intersect_ref
+    from repro_torch.kernels.intersect.ref import (intersect_all_ref,
+                                                   intersect_ref)
     from repro_torch.kernels.topk_score.kernel import score_kernel
     from repro_torch.kernels.topk_score.ref import score_ref
     kb = eng.backends["kernel"]
@@ -1446,21 +1718,29 @@ def time_round(eng, groups, label: str) -> dict:
             f"{sum(dec) / sum(e2e):.4f} of the summed time)")
     dev = eng.device
     # intersect: the conjunctive query with the longest lists; its shortest
-    # list against its longest
+    # list against its longest, and its launch against all its lists
     best = None
     for q in groups[0]:
         lists = kb.conjunctive_lists(q)
         if lists is not None and len(lists) > 1 and (
                 best is None or len(lists[0]) + len(lists[-1])
-                > len(best[0]) + len(best[1])):
-            best = (lists[0], lists[-1])
+                > len(best[0]) + len(best[-1])):
+            best = lists
     out = {}
     if best is not None:
-        a, b = (torch.from_numpy(x).to(dev) for x in best)
-        err = exact_and_repeatable("intersect", intersect_kernel(a, b),
-                                   intersect_kernel(a, b),
-                                   intersect_ref(a, b))
-        out["intersect"] = dict(time_intersect(label, a, b), max_abs_err=err)
+        a, *rest = (torch.from_numpy(x).to(dev) for x in best)
+        b, off = concat_lists(rest)
+        err = exact_and_repeatable("intersect", intersect_kernel(a, b, off),
+                                   intersect_kernel(a, b, off),
+                                   intersect_all_ref(a, b, off))
+        err = max(err, exact_and_repeatable(
+            "intersect", intersect_kernel(a, rest[-1]),
+            intersect_kernel(a, rest[-1]), intersect_ref(a, rest[-1])))
+        out["intersect"] = dict(time_intersect(
+            f"{label}, the longest lists", a, rest[-1:]), max_abs_err=err)
+        if len(rest) > 1:
+            out["intersect"]["path_query"] = time_intersect(
+                f"{label}, that query's launch", a, rest)
     # topk_score: the ranked query with the most postings
     best = None
     for qs in groups[1:]:
@@ -1557,23 +1837,35 @@ def triangle_path(n_docs: int, const_index: tuple[float, int]) -> dict:
     return out
 
 
+def intersect_inputs(dev):
+    """A seeded intersect case at Path A's round-2 shape: 91,737 sorted
+    docids of 98,732, and three further lists (all 98,732 docids, then
+    90,000 and 95,000 of them)."""
+    import torch
+    g = np.random.default_rng(31)
+    ids = np.arange(1, 98_733)
+    a = np.sort(g.choice(ids, size=91_737, replace=False))
+    lists = [ids] + [np.sort(g.choice(ids, size=n, replace=False))
+                     for n in (90_000, 95_000)]
+    return (torch.from_numpy(a.astype(np.int32)).to(dev),
+            [torch.from_numpy(x.astype(np.int32)).to(dev) for x in lists])
+
+
 def kernel_shapes(dev) -> None:
     """``--kernels``: the kernels that have a library call, against it, on
     seeded inputs at the paths' shapes (Path A's round 2, the hybrid path's
     largest candidate set, retrieval_cand), without driving the paths."""
-    import torch
     from repro_torch.configs.two_tower_retrieval import CFG, RETRIEVAL_CAND
     from repro_torch.kernels.intersect.kernel import intersect_kernel
-    from repro_torch.kernels.intersect.ref import intersect_ref
+    from repro_torch.kernels.intersect.ref import intersect_all_ref
     score_sweep(dev, (4, 9, 40))
-    g = np.random.default_rng(31)
-    b = torch.arange(1, 98_733, dtype=torch.int32, device=dev)
-    a = torch.from_numpy(np.sort(g.choice(np.arange(1, 98_733), size=91_737,
-                                          replace=False)).astype(np.int32))
-    a = a.to(dev)
-    exact_and_repeatable("intersect", intersect_kernel(a, b),
-                         intersect_kernel(a, b), intersect_ref(a, b))
-    time_intersect("synthetic (Path A's shape)", a, b)
+    a, lists = intersect_inputs(dev)
+    for n in (1, 3):
+        b, off = concat_lists(lists[:n])
+        exact_and_repeatable("intersect", intersect_kernel(a, b, off),
+                             intersect_kernel(a, b, off),
+                             intersect_all_ref(a, b, off))
+        time_intersect("synthetic (Path A's shape)", a, lists[:n])
     for n in (73_474, RETRIEVAL_CAND):
         seeded_dot(f"synthetic, n={n}", n, CFG.embed_dim, dev)
 
@@ -1586,6 +1878,14 @@ def main() -> int:
                     help="build and check every kernel, time the kernels "
                          "that have a library call on seeded inputs at the "
                          "paths' shapes, and stop: no path is driven")
+    ap.add_argument("--term-ab", type=Path, metavar="DIR",
+                    help="time the dvbyte_decode and intersect kernels of "
+                         "another revision (DIR/dvbyte_decode.cu, "
+                         "DIR/intersect.cu) against this checkout's in "
+                         "turns on Path B's decode input (DIR/inputs.pt, "
+                         "written first from a Const engine of --docs "
+                         "documents) and Path A's intersect shape, then "
+                         "check both, and stop: no path is driven")
     ap.add_argument("--fused-only", type=Path, metavar="PT",
                     help="time the fused kernel alone on the main path's "
                          "prepared batches, read from PT (written there "
@@ -1607,6 +1907,11 @@ def main() -> int:
     from repro_torch.kernels import build
 
     say(f"[card] {card_line()}")
+    if args.term_ab:
+        term_ab(args.term_ab, args.docs)
+        say(f"[card] {card_line()}")
+        say("[done] --term-ab: no path was driven")
+        return 0
     if args.fused_only:
         build.build_all(["fused_query"])
         for line in build.build_log("fused_query").splitlines():
@@ -1667,7 +1972,9 @@ def main() -> int:
         for key in ("launches", "max_abs_err", "parity", "ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms"):
             entry[key] = r[key]
-        for key in ("retrieval_cand", "off_path"):
+        for key in ("retrieval_cand", "off_path", "nonempty_rows",
+                    "bound_ms_every_row", "decode_share", "floor_ms",
+                    "path_query"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

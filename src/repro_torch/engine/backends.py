@@ -93,11 +93,11 @@ class KernelBackend(Backend):
 
     An index without device images (Triangle or Expon growth) takes the
     per-op path: each term's postings are decoded on the host (the live
-    chains are host memory) and copied to ``engine.device``, where
-    conjunctive queries run one ``intersect`` launch per further list and
-    ranked queries one ``topk_score`` launch, then a top-k.  On a CUDA
-    device the ops launch their kernels; on the CPU they run their plain
-    versions.
+    chains are host memory) and copied to ``engine.device``, where a
+    conjunctive query of two or more terms runs one ``intersect`` launch
+    for all its further lists and a ranked query one ``topk_score``
+    launch, then a top-k.  On a CUDA device the ops launch their kernels;
+    on the CPU they run their plain versions.
     """
 
     name = "kernel"
@@ -178,13 +178,17 @@ class KernelBackend(Backend):
         lists = self.conjunctive_lists(query) if query.terms else None
         if lists is None:
             return QueryResult.empty(query.mode, self.name)
-        dev = self.engine.device
-        a = torch.from_numpy(lists[0]).to(dev)
-        flags = torch.ones(len(lists[0]), dtype=torch.bool, device=dev)
-        intersect = registry.get("intersect").fn
-        for other in lists[1:]:
-            flags &= intersect(a, torch.from_numpy(other).to(dev))
-        hit = flags.cpu().numpy()          # the one copy back
+        hit = np.ones(len(lists[0]), bool)
+        if len(lists) > 1:
+            # the bounds of the further lists, the shortest list and the
+            # further lists in one buffer: one copy, one launch
+            n, na = len(lists) - 1, len(lists[0])
+            bounds = np.cumsum([0] + [len(x) for x in lists[1:]])
+            buf = torch.from_numpy(np.concatenate(
+                [bounds.astype(np.int32), *lists])).to(self.engine.device)
+            flags = registry.get("intersect").fn(
+                buf[n + 1:n + 1 + na], buf[n + 1 + na:], offsets=buf[:n + 1])
+            hit = flags.cpu().numpy()      # the one copy back
         d = hostq._drop_dead(lists[0][hit].astype(np.int64),
                              hostq._tombstones(self.engine.index))
         return QueryResult(d, None, self.name)

@@ -44,46 +44,56 @@ def nvcc() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
-def library_path(name: str) -> Path:
-    src = SOURCES[name]
+def _library(src: Path, tag: str) -> Path:
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{tag}-{digest}.so"
 
 
-def _start(name: str):
-    """Start ``nvcc`` for one kernel; None when its library is current."""
-    lib = library_path(name)
+def library_path(name: str) -> Path:
+    return _library(SOURCES[name], name)
+
+
+def _start(src: Path, lib: Path):
+    """Start ``nvcc`` for one source; None when its library is current."""
     if lib.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, lib
 
 
-def _finish(name: str, job) -> None:
+def _finish(tag: str, job) -> None:
     proc, tmp, lib = job
     out, _ = proc.communicate()
     lib.with_suffix(".log").write_text(out)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name} "
+        raise RuntimeError(f"nvcc failed for {tag} "
                            f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, lib)       # atomic: a concurrent build never sees half
 
 
-def build_all(names=None) -> dict[str, Path]:
-    """Build every named kernel (default: all), one ``nvcc`` per source,
-    all started together.  Returns name -> library path."""
-    names = list(SOURCES if names is None else names)
-    jobs = {n: _start(n) for n in names}
-    for n, job in jobs.items():
+def build_sources(sources: dict[str, Path]) -> dict[str, Path]:
+    """Build each source (tag -> path) into ``lib<tag>-<hash>.so``, one
+    ``nvcc`` per source, all started together.  Returns tag -> library
+    path.  Sources outside :data:`SOURCES` (another revision's kernel, for
+    an A/B on one card) build under their own tags."""
+    libs = {t: _library(Path(s), t) for t, s in sources.items()}
+    jobs = {t: _start(Path(s), libs[t]) for t, s in sources.items()}
+    for t, job in jobs.items():
         if job is not None:
-            _finish(n, job)
-    return {n: library_path(n) for n in names}
+            _finish(t, job)
+    return libs
+
+
+def build_all(names=None) -> dict[str, Path]:
+    """Build every named kernel (default: all) of this checkout."""
+    names = list(SOURCES if names is None else names)
+    return build_sources({n: SOURCES[n] for n in names})
 
 
 def build_log(name: str) -> str:

@@ -4,7 +4,9 @@
 :func:`..ref.decode_blocks`, checks them, allocates the three (NB, B)
 outputs with ``torch.empty`` and launches the kernel on the current CUDA
 stream.  It never falls back to the plain version: a tensor off the card, a
-failed build or a refused launch raises.  ``NB == 0`` needs no launch.
+failed build or a refused launch raises, and so does a block wider than
+:data:`MAX_B` bytes (the kernel keeps one bit per byte position in a
+64-bit mask).  ``NB == 0`` needs no launch.
 
 ``launches`` counts the kernel launches made through this wrapper.
 """
@@ -20,6 +22,8 @@ from ..cuda_args import check, raise_on_error, require_cuda
 
 #: kernel launches made through :func:`dvbyte_decode_kernel`
 launches = 0
+#: widest block the kernel decodes (bytes)
+MAX_B = 64
 
 
 def _lib():
@@ -39,6 +43,9 @@ def dvbyte_decode_kernel(blocks: torch.Tensor, start: torch.Tensor,
     if blocks.dim() != 2:
         raise ValueError("blocks must be (NB, B)")
     NB, B = blocks.shape
+    if not 1 <= B <= MAX_B:
+        raise ValueError(f"blocks of {B} bytes: the kernel takes 1 to "
+                         f"{MAX_B}")
     check(blocks, "blocks", torch.uint8, (NB, B), device)
     check(start, "start", torch.int32, (NB,), device)
     check(end, "end", torch.int32, (NB,), device)

@@ -36,5 +36,7 @@ from .. import registry  # noqa: E402
 registry.register(registry.KernelSpec(
     name="dvbyte_decode", fn=dvbyte_decode_blocks,
     modes=("conjunctive", "ranked_tfidf", "bm25"),
-    description="Double-VByte block decode, one CUDA thread per block with "
-                "coalesced staging; the decode_fn of query_step"))
+    description="Double-VByte block decode, a half-warp per block in the "
+                "closed form (ballot masks, half-warp scans, escape pairing "
+                "by run parity), stored from registers, empty blocks never "
+                "read; the decode_fn of query_step"))
