@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU and check it.
 
-    python3 chip_smoke.py                  # Const path cut, Path A full
-    python3 chip_smoke.py --docs 98732     # the Const path at full scale too
+    python3 chip_smoke.py                  # Const path and Path A cut
+    python3 chip_smoke.py --docs 98732     # the Const path at full scale
     python3 chip_smoke.py --kernels        # phases 1-2 and the kernels at
                                            # the paths' shapes, ~1 min
     python3 chip_smoke.py --fused-only PT  # fused_query alone on the main
                                            # path's batches, saved in PT
     python3 chip_smoke.py --term-ab DIR    # dvbyte_decode and intersect
                                            # against another revision's
+    python3 chip_smoke.py --tier-only      # the Const ingest and the tier
+                                           # phase alone
 
 Phases, each printing its own lines; the first failed check exits non-zero:
 
@@ -64,6 +66,25 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      beside its bound (the bounds of every block, the bytes of the
      non-empty ones, the outputs).
 
+     Then the tier phase (:func:`tier_phase`) on the same engine: a
+     background freeze (``enable_tiering(FreezePolicy(codec="bp128"))``,
+     ``lifecycle.freeze()``: ``collate_now`` and a new frozen device image
+     on this thread, the bp128 encode on the lifecycle's) while the first
+     batch of 32 of each mode is served through ``fused_query``, the
+     encode still running after them; then tier epoch 1, the horizon at
+     ``num_docs``, the deletes compacted, the tier's bytes per posting
+     beside the dynamic index's; the same batches on the new frozen image
+     and, forced, through ``tiered`` (docids and score bits equal to the
+     host's); 256 more documents and 8 deletes, the batches over the
+     tier-era image and a delta; then ``Engine.snapshot`` to a temporary
+     directory and ``Engine.restore`` onto the card, whose fused answers
+     must equal the engine's before the snapshot bit for bit.  Every
+     answer is held against the host backend, and ``fused_query`` must
+     launch once per batch (12).  It prints the encode's wall seconds, a
+     batch's ms during the encode against after it, the snapshot's
+     seconds and bytes and the restore's seconds to the first answer on
+     the card, each with the card's name and power limit.
+
      Then, on the same engine (frozen image, delta, deletes), the hybrid
      retrieval path: the two-tower model at full width (two 2,000,384 x 256
      float32 tables, towers 1024-512-256) on the card; two rounds of the
@@ -84,15 +105,15 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      engine's default (``delta_compact_frac=0.25``) a delta this large
      re-collates the whole index at the first refresh and leaves the delta
      empty; the ``[compaction]`` line prints the projection that decides it;
-  4. Path A, the variable-growth kernel backend at full scale: the whole
-     WSJ1-like stream into ``Engine(B=64, growth="triangle")`` (paper §5.4,
-     no device image) through ``QueryService(max_batch=32, cache_size=0)``
-     in batches of 256, 8 deletes per batch in the last 10 %, its bytes per
-     posting beside the Const path's at the Const path's document count
-     (the same stream prefix), and two query
-     rounds (at 90 %, before any delete, and at the end) of one batch of 32
-     queries per mode, unforced (the planner's kernel/host split is
-     printed) and then forced to ``backend="kernel"``.  Every answer is held
+  4. Path A, the variable-growth kernel backend: the first
+     ``TRIANGLE_DOCS`` documents of the WSJ1-like stream (cut, like the
+     Const path, to 73,728) into ``Engine(B=64, growth="triangle")``
+     (paper §5.4, no device image) through ``QueryService(max_batch=32,
+     cache_size=0)`` in batches of 256, its bytes per posting beside the
+     Const path's at the same document count (the same stream prefix),
+     and one query round at 90 % of one batch of 32 queries per mode,
+     unforced (the planner's kernel/host split is printed) and then forced
+     to ``backend="kernel"``.  Every answer is held
      against the host backend, the ``intersect`` and ``topk_score`` launch
      counts must equal the expected ones (one ``intersect`` launch per
      kernel-served conjunctive query of two or more terms, all with
@@ -116,6 +137,8 @@ Plain versions and end-to-end lines are timed call by call (``cuda_ms``,
 host clock).  ``--kernels`` stops after phase 2 and times the kernels that
 have a library call on seeded inputs at the paths' shapes (``topk_score``
 also at 9 and 40 segments); it drives no path and prints no result line.
+``--tier-only`` builds only ``fused_query``, builds the Const engine as
+phase 3 does (without the split path) and runs the tier phase on it.
 ``--fused-only PT`` builds only ``fused_query`` and times it on phase 3's
 first prepared batch of 32 queries per mode, read from PT, or first
 written there from a Const engine built as phase 3 builds it (a CRC of
@@ -151,7 +174,9 @@ REPS = 20                      # timed calls of a plain version or a batch
 LAUNCHES = 20                  # back-to-back kernel launches per timed run
 RUNS = 7                       # timed runs per turn
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-TRIANGLE_DOCS = 98_732         # Path A's stream: WSJ1-like, full scale
+TRIANGLE_DOCS = 73_728         # Path A's stream: WSJ1-like, cut to the
+                               # Const path's count (full: 98,732) to make
+                               # room for the tier phase
 CONST_DOCS = 73_728            # the Const path's stream, cut (full: 98,732):
                                # 288 batches of 256, so Path A's engine
                                # passes the same count at a batch boundary;
@@ -1511,12 +1536,219 @@ def main_path(n_docs: int) -> dict:
     if split is None:
         fail("the stream ended before the split path ran")
     const_index = (eng.index.bytes_per_posting(), eng.index.num_docs)
+    tier = tier_phase(eng, svc, corpus, names, groups[:3])
     hybrid = hybrid_phase(eng, corpus, names, probs, rng)
     return {"launches": launches, "max_abs_err": err, "ms": mean(ms),
             "plain_ms": mean(plain_ms), "bound_ms": mean(bound),
-            "bound_by": bound_by,
+            "bound_by": bound_by, "tier_phase_launches": tier["launches"],
             "library_ms": None, "split": split, "hybrid": hybrid,
             "index": const_index}
+
+
+def tier_only(n_docs: int) -> None:
+    """``--tier-only``: the Const engine as the main path builds it,
+    without the split path, then the tier phase on its first batch of 32
+    queries per mode."""
+    rng = np.random.default_rng(2024)
+    c = const_engine(n_docs, rng)
+    eng = c["eng"]
+    st = eng.stats()
+    say(f"[ingest] {st.num_docs} docs, {st.num_postings} postings, "
+        f"{len(eng.index.tombstones)} deletes in {st.ingest_time_s:.3f} s "
+        f"of add_documents ({c['wall_s']:.3f} s with generation)")
+    batches = [zipf_queries(rng, c["names"], c["probs"], eng, 32, mode)
+               for mode in MODES]
+    tier_phase(eng, c["svc"], c["corpus"], c["names"], batches)
+
+
+# --------------------------------------------------------------------------
+# phase 3, continued: the static tier, its freeze and a snapshot restore
+# --------------------------------------------------------------------------
+
+
+def serve_timed(svc, batches) -> tuple[list, dict]:
+    """Each batch of 32 through the service (one flush, one fused launch),
+    on the host's clock with a synchronize after it: (tickets, ms by
+    mode)."""
+    import torch
+    tickets, ms = [], {}
+    for qs in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts = [svc.submit(q) for q in qs]        # 32 fill a batch: flush
+        svc.flush()
+        torch.cuda.synchronize()
+        ms[qs[0].mode] = (time.perf_counter() - t0) * 1e3
+        if any(t.result.backend != "device" for t in ts):
+            fail(f"a {qs[0].mode} query of the tier phase was not routed "
+                 f"to the device backend")
+        tickets += ts
+    return tickets, ms
+
+
+def same_bits(a, b, label: str) -> None:
+    """Two answer lists equal: docids, and score bits where ranked."""
+    for ra, rb in zip(a, b, strict=True):
+        if ra.docids.tolist() != rb.docids.tolist() or (
+                ra.scores is not None
+                and ra.scores.tobytes() != rb.scores.tobytes()):
+            fail(f"{label}: {ra.docids[:10]} {ra.scores} against "
+                 f"{rb.docids[:10]} {rb.scores}")
+
+
+def tier_phase(eng, svc, corpus, names, batches) -> dict:
+    """The static tier on the Const engine: a background freeze into a
+    bp128 tier while the main path's first batch of each mode is served
+    through ``fused_query``; the tier's checks; the same batches on the
+    tier-era frozen image, and through ``tiered``; a post-freeze delta of
+    256 documents with 8 deletes; a snapshot and ``Engine.restore`` onto
+    the card, whose fused answers must equal the engine's bit for bit.
+    Every answer is held against the host backend."""
+    import tempfile
+
+    import torch
+    from repro_torch.core.lifecycle import FreezePolicy
+    from repro_torch.engine import Engine, Query
+    from repro_torch.kernels.fused_query import kernel as fq_kernel
+    from repro_torch.serve import QueryService
+    card = card_line()
+    dead = set(eng.index.tombstones)
+    fq_kernel.launches = 0          # counts from here are the tier phase's
+
+    # ---- 1-2. freeze in the background, serve meanwhile -----------------
+    lc = eng.enable_tiering(FreezePolicy(codec="bp128"))
+    t0 = time.perf_counter()
+    if not lc.freeze():
+        fail("the tier freeze did not start")
+    call_s = time.perf_counter() - t0    # collate_now + clone, this thread
+    t1 = time.perf_counter()
+    eng.resident.refresh()               # the new frozen image's stats
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t1
+    tickets, during = serve_timed(svc, batches)
+    if not lc.in_flight:
+        fail("the encode ended before the batches were answered: nothing "
+             "was served during it")
+    # the host's answers by query, kept while the index's contents stand
+    # still (a freeze moves no document): one host run per query for the
+    # checks during and after the encode and the tiered batches
+    host: dict = {}
+    t1 = time.perf_counter()
+    check_against_host(eng, [t.result for t in tickets],
+                       [t.query for t in tickets], "during the encode", host)
+    check_s = time.perf_counter() - t1
+    say(f"[tier] during the encode: {len(tickets)} queries answered through "
+        f"fused_query, the encode still running after them; equal to the "
+        f"host backend's ({check_s:.3f} s for the host's answers)")
+    lc.wait()
+    wall_s = time.perf_counter() - t0
+
+    # ---- 3. the tier -----------------------------------------------------
+    tier, st = eng.static_tier(), eng.stats()
+    if st.tier_epoch != 1 or tier is None or tier.epoch != 1:
+        fail(f"tier epoch {st.tier_epoch}, expected 1")
+    if tier.num_docs != eng.index.num_docs:
+        fail(f"tier horizon {tier.num_docs} != num_docs "
+             f"{eng.index.num_docs}")
+    if st.tombstones_compacted != len(dead):
+        fail(f"tombstones_compacted {st.tombstones_compacted} != deletes "
+             f"{len(dead)}")
+    say(f"[tier] epoch 1, horizon {tier.num_docs} = num_docs, "
+        f"{st.tombstones_compacted} tombstones compacted = the deletes; "
+        f"{tier.num_postings} postings; static bp128 "
+        f"{tier.index.bytes_per_posting():.4f} bytes/posting against the "
+        f"dynamic index's {eng.index.bytes_per_posting():.4f}")
+    say(f"[time] tier freeze: encode {tier.encode_s:.3f} s on its thread "
+        f"(wall {wall_s:.3f} s from the freeze call to wait(); the call, "
+        f"collate_now and the clone on this thread, {call_s:.3f} s; the "
+        f"first refresh of the new frozen image {refresh_s:.3f} s, during "
+        f"the encode) ({card})")
+
+    # ---- 4. the same batches on the new frozen image, and tiered --------
+    after_t, after = serve_timed(svc, batches)
+    check_against_host(eng, [t.result for t in after_t],
+                       [t.query for t in after_t], "after the swap", host)
+    say("[time] main-path batch of 32, ms during the encode -> after it: "
+        + ", ".join(f"{m} {during[m]:.3f} -> {after[m]:.3f}" for m in MODES)
+        + f" (host clock, one batch each) ({card})")
+    tiered_ms = {}
+    for qs in batches:
+        forced = [Query(terms=q.terms, mode=q.mode, k=q.k, backend="tiered")
+                  for q in qs]
+        t1 = time.perf_counter()
+        got = eng.execute_many(forced)
+        tiered_ms[qs[0].mode] = (time.perf_counter() - t1) * 1e3
+        if any(r.backend != "tiered" for r in got):
+            fail("a forced tiered query was served elsewhere")
+        same_bits(got, [host[Query(terms=q.terms, mode=q.mode, k=q.k,
+                                   backend="host")] for q in qs],
+                  f"tiered {qs[0].mode}")
+    say(f"[tier] one batch of 32 per mode through the tiered backend: "
+        f"docids and score bits equal to the host backend's; ms a batch "
+        + ", ".join(f"{m} {tiered_ms[m]:.3f}" for m in MODES)
+        + f" (host clock) ({card})")
+
+    # ---- 5. a post-freeze delta -----------------------------------------
+    corpus.spec = corpus.spec.scaled(256)
+    fresh = [[names[i] for i in ids.tolist()]
+             for ids in corpus.doc_term_ids()]
+    rng = np.random.default_rng(99)
+    svc.ingest_batch(fresh)
+    while len(eng.index.tombstones) < len(dead) + 8:
+        d = int(rng.integers(1, eng.index.num_docs + 1))
+        if d not in eng.index.tombstones:
+            svc.delete(d)
+    delta_t, _ = serve_timed(svc, batches)
+    before = [t.result for t in delta_t]
+    host = {}                  # the restored engine holds these contents
+    check_against_host(eng, before, [t.query for t in delta_t],
+                       "with a post-freeze delta", host)
+    say(f"[tier] {len(fresh)} more documents and 8 deletes: fused answers "
+        f"over the tier-era frozen image and a delta of "
+        f"{eng.resident.delta_blocks} blocks equal the host backend's")
+
+    # ---- 6. snapshot, restore onto the card ------------------------------
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        snap = eng.snapshot(root)
+        snap_s = time.perf_counter() - t0
+        snap_bytes = sum(p.stat().st_size for p in Path(snap).iterdir())
+        say(f"[time] snapshot {snap_s:.3f} s, {snap_bytes} bytes in "
+            f"{len(list(Path(snap).iterdir()))} files ({card})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = Engine.restore(root, delta_compact_frac=None)
+        rsvc = QueryService(restored, max_batch=32, cache_size=0)
+        first = [rsvc.submit(q) for q in batches[0]]
+        rsvc.flush()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    where = restored.resident.images[0].blocks.device
+    if where.type != eng.device.type:
+        fail(f"the restored engine's frozen image lives on {where}, the "
+             f"engine's on {eng.device}")
+    rest_t, _ = serve_timed(rsvc, batches[1:])
+    got = [t.result for t in first + rest_t]
+    same_bits(got, before, "restored against the engine before the "
+                           "snapshot")
+    check_against_host(restored, got, [t.query for t in first + rest_t],
+                       "restored", host)
+    say(f"[tier] restored: epoch {restored.stats().tier_epoch}, "
+        f"{restored.index.num_docs} docs, delta "
+        f"{restored.resident.delta_blocks} blocks; fused answers equal the "
+        f"engine's before the snapshot bit for bit, and the host backend's")
+    say(f"[time] restore to the first answer on the card {first_s:.3f} s "
+        f"({card})")
+    torch.cuda.synchronize()
+    launches = fq_kernel.launches
+    if launches != 4 * len(batches):
+        fail(f"fused_query launches in the tier phase: {launches}, expected "
+             f"one per batch of 32 = {4 * len(batches)}")
+    say(f"[tier] fused_query launches in the phase: {launches}, one per "
+        f"batch (during, after, with the delta, restored)")
+    del restored, rsvc
+    gc.collect()
+    return {"launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -1761,10 +1993,11 @@ def time_round(eng, groups, label: str) -> dict:
 
 
 def triangle_path(n_docs: int, const_index: tuple[float, int]) -> dict:
-    """Path A: the whole WSJ1-like stream into a Triangle-growth engine on
-    the card, two query rounds through the service, unforced and forced to
-    the kernel backend.  ``const_index`` is the Const path's (bytes per
-    posting, documents), compared at the same document count."""
+    """Path A: the first ``n_docs`` documents of the WSJ1-like stream into
+    a Triangle-growth engine on the card, one query round at 90 % through
+    the service, unforced and forced to the kernel backend.
+    ``const_index`` is the Const path's (bytes per posting, documents),
+    compared at the same document count."""
     import torch
     from repro_torch.data.corpus import WSJ1_LIKE, SyntheticCorpus, term_table
     from repro_torch.engine import Engine
@@ -1783,7 +2016,6 @@ def triangle_path(n_docs: int, const_index: tuple[float, int]) -> dict:
     tri_bpp = None               # Triangle's bytes/posting at const_docs
     launches = {"intersect": 0, "topk_score": 0}
     timed = {}
-    dead: set[int] = set()
     batch: list[list[str]] = []
     t_gen = time.perf_counter()
 
@@ -1803,19 +2035,13 @@ def triangle_path(n_docs: int, const_index: tuple[float, int]) -> dict:
             if eng.index.num_docs == const_docs:
                 tri_bpp = eng.index.bytes_per_posting()
             if eng.index.num_docs == round_at:
-                query_round(f"round 1 ({round_at} docs, no deletes)")
-            elif eng.index.num_docs > round_at:
-                for _ in range(8):          # tombstone on the way
-                    d = int(rng.integers(1, eng.index.num_docs + 1))
-                    if d not in dead:
-                        dead.add(d)
-                        svc.delete(d)
+                query_round(f"round 1 ({round_at} docs)")
     wall_s = time.perf_counter() - t_gen
     st = eng.stats()
     say(f"[ingest] triangle: {st.num_docs} docs, {st.num_postings} postings "
         f"in {st.ingest_time_s:.3f} s of add_documents ({wall_s:.3f} s with "
         f"generation and round 1): {st.num_docs / st.ingest_time_s:.1f} "
-        f"docs/s; {len(dead)} deletes")
+        f"docs/s")
     if tri_bpp is None:
         fail(f"Path A's stream never reached the Const path's {const_docs} "
              f"documents")
@@ -1824,7 +2050,6 @@ def triangle_path(n_docs: int, const_index: tuple[float, int]) -> dict:
         f"{eng.index.bytes_per_posting():.4f} at {st.num_docs} docs (host "
         f"dynamic index incl. hash; paper §5.4: Triangle growth keeps "
         f"Θ(√n) space overhead)")
-    query_round(f"round 2 ({st.num_docs} docs, {len(dead)} deletes)")
     torch.cuda.synchronize()
     for name in launches:
         if launches[name] == 0 or name not in timed:
@@ -1886,6 +2111,11 @@ def main() -> int:
                          "written first from a Const engine of --docs "
                          "documents) and Path A's intersect shape, then "
                          "check both, and stop: no path is driven")
+    ap.add_argument("--tier-only", action="store_true",
+                    help="build fused_query, ingest the Const stream of "
+                         "--docs documents and run the tier phase on it "
+                         "(freeze, serve, delta, snapshot, restore), and "
+                         "stop: no other path is driven")
     ap.add_argument("--fused-only", type=Path, metavar="PT",
                     help="time the fused kernel alone on the main path's "
                          "prepared batches, read from PT (written there "
@@ -1911,6 +2141,14 @@ def main() -> int:
         term_ab(args.term_ab, args.docs)
         say(f"[card] {card_line()}")
         say("[done] --term-ab: no path was driven")
+        return 0
+    if args.tier_only:
+        build.build_all(["fused_query"])
+        tier_only(args.docs)
+        if "jax" in sys.modules:
+            fail("jax was imported")
+        say(f"[card] {card_line()}")
+        say("[done] --tier-only: no other path was driven")
         return 0
     if args.fused_only:
         build.build_all(["fused_query"])
@@ -1974,7 +2212,7 @@ def main() -> int:
             entry[key] = r[key]
         for key in ("retrieval_cand", "off_path", "nonempty_rows",
                     "bound_ms_every_row", "decode_share", "floor_ms",
-                    "path_query"):
+                    "path_query", "tier_phase_launches"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

@@ -11,7 +11,12 @@ JAX: a caller converts a JAX object's fields with ``np.asarray`` first.
   state, so ``Engine(index=...)`` can adopt an index built elsewhere;
 * :func:`twotower_from_jax` builds a port
   :class:`~repro_torch.models.recsys.TwoTower` holding the parameters of
-  the reference's ``twotower_init`` pytree.
+  the reference's ``twotower_init`` pytree;
+* :func:`static_from_jax` builds a port
+  :class:`~repro_torch.core.static_index.StaticIndex` from the reference's
+  ``StaticIndex.to_arrays()`` output: the same compressed streams, so the
+  tier serves the same answers.  (Engine snapshots, ``core/persist.py``,
+  are the other way state crosses: the format is shared.)
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 
 from .core.device_index import DeltaIndex, DeviceIndex, resolve_device
 from .core.index import DynamicIndex
+from .core.static_index import StaticIndex
 from .models.recsys import TwoTower, TwoTowerConfig
 
 _IMAGE_FIELDS = ("blocks", "term_slot", "term_nblk", "term_skip", "term_nx",
@@ -110,3 +116,13 @@ def twotower_from_jax(params: dict, cfg: TwoTowerConfig,
                 put(lin.weight, np.asarray(layer["w"]).T)
                 put(lin.bias, layer["b"])
     return model
+
+
+def static_from_jax(meta: dict, arrays: dict) -> StaticIndex:
+    """The port's :class:`StaticIndex` holding a static tier's streams:
+    ``(meta, arrays)`` as the reference's ``StaticIndex.to_arrays()``
+    returns them (plain numpy arrays and scalars).  The codec words keep
+    their dtypes (``uint32`` words, ``int64`` counts and offsets), so the
+    result's own ``to_arrays()`` gives the same bytes back."""
+    return StaticIndex.from_arrays(dict(meta), {
+        name: np.asarray(a) for name, a in arrays.items()})

@@ -31,7 +31,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from .blockstore import _OFF_NPTR, H
+from .blockstore import _OFF_FT, _OFF_LASTD, _OFF_NPTR, _OFF_NX, _OFF_TPTR, H
 from .collate import is_collated
 from .dvbyte import dvbyte_decode_from
 from .index import DynamicIndex
@@ -46,6 +46,24 @@ def resolve_device(device=None) -> torch.device:
             "device is CUDA but no CUDA device is available; pass "
             "device='cpu' to run the device path's plain version on the CPU")
     return dev
+
+
+def _heads(index: DynamicIndex, vocab: list[bytes]) -> np.ndarray:
+    """Each ``vocab`` term's head slot, -1 where the index lacks it: one
+    pass over the index's heads instead of a hash probe per term."""
+    pos = {t: i for i, t in enumerate(vocab)}
+    heads = np.full(len(vocab), -1, np.int64)
+    for t, h_ptr in index.terms():
+        i = pos.get(t)
+        if i is not None:
+            heads[i] = h_ptr
+    return heads
+
+
+def _u32_at(I: np.ndarray, off: np.ndarray) -> np.ndarray:
+    """The little-endian uint32 at each byte offset ``off`` of ``I``."""
+    b = I[off[:, None] + np.arange(4)].astype(np.int64)
+    return b[:, 0] | b[:, 1] << 8 | b[:, 2] << 16 | b[:, 3] << 24
 
 
 def _i32(x: np.ndarray, device) -> torch.Tensor:
@@ -90,17 +108,18 @@ def build_device_image(index: DynamicIndex, vocab: list[bytes],
     skip = np.zeros(V, np.int32)
     nxs = np.zeros(V, np.int32)
     fts = np.zeros(V, np.int32)
-    for i, t in enumerate(vocab):
-        h_ptr = index.lookup(t)
-        if h_ptr is None:
-            continue
-        hb = h_ptr * B
-        # collated: the chain is the contiguous run [h_ptr, t_ptr]
-        slot[i] = h_ptr
-        nblk[i] = store.get_tptr(hb) - h_ptr + 1
-        skip[i] = store.head_fixed + int(store.I[hb + store.head_fixed - 1])
-        nxs[i] = store.get_nx(hb)
-        fts[i] = store.get_ft(hb)
+    heads = _heads(index, vocab)
+    have = heads >= 0
+    h_ptr = heads[have]
+    hb = h_ptr * B
+    I = store.I
+    # collated: the chain is the contiguous run [h_ptr, t_ptr]
+    slot[have] = h_ptr
+    nblk[have] = _u32_at(I, hb + _OFF_TPTR) - h_ptr + 1
+    skip[have] = store.head_fixed + I[hb + store.head_fixed - 1].astype(
+        np.int64)
+    nxs[have] = I[hb + _OFF_NX]          # Const blocks: a one-byte cursor
+    fts[have] = _u32_at(I, hb + _OFF_FT)
     nb = store.nblocks
     if pad_blocks is not None:
         nb = max(nb, pad_blocks)
@@ -154,18 +173,17 @@ def capture_delta_baseline(index: DynamicIndex,
         lastd=np.zeros(V, np.int64), dnum=np.zeros(V, np.int64),
         ft=np.zeros(V, np.int64), num_docs=index.num_docs,
         nblocks=store.nblocks)
-    for i, t in enumerate(vocab):
-        h_ptr = index.lookup(t)
-        if h_ptr is None:
-            continue
-        hb = h_ptr * B
-        t_ptr = store.get_tptr(hb)
-        out.tail_slot[i] = t_ptr
-        out.nx[i] = store.get_nx(hb)
-        out.lastd[i] = store.get_lastd(hb)
-        # slot 0 of the tail block is d_num while the block IS the tail
-        out.dnum[i] = store._get_u32(t_ptr * B + _OFF_NPTR)
-        out.ft[i] = store.get_ft(hb)
+    heads = _heads(index, vocab)
+    have = heads >= 0
+    hb = heads[have] * B
+    I = store.I
+    t_ptr = _u32_at(I, hb + _OFF_TPTR)
+    out.tail_slot[have] = t_ptr
+    out.nx[have] = I[hb + _OFF_NX]       # Const blocks: a one-byte cursor
+    out.lastd[have] = _u32_at(I, hb + _OFF_LASTD)
+    # slot 0 of the tail block is d_num while the block IS the tail
+    out.dnum[have] = _u32_at(I, t_ptr * B + _OFF_NPTR)
+    out.ft[have] = _u32_at(I, hb + _OFF_FT)
     return out
 
 

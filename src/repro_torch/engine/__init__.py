@@ -1,5 +1,5 @@
-"""Unified query engine: one planner/executor over the host, device and
-kernel backends.
+"""Unified query engine: one planner/executor over the host, device,
+kernel and tiered backends.
 
     eng = Engine(B=64, growth="const")          # device images on the card
     eng.add_document(["fast", "dynamic", "index"])
@@ -17,14 +17,37 @@ kernel backends.
   * :class:`~repro_torch.engine.backends.KernelBackend` — ``"kernel"``:
     on an index without device images (Triangle or Expon growth) it
     decodes postings on the host and runs the ``intersect`` and
-    ``topk_score`` kernels; on a Const index, the fused path.
+    ``topk_score`` kernels; on a Const index, the fused path;
+  * :class:`~repro_torch.engine.backends.TieredBackend` — the frozen docid
+    prefix served from the compressed
+    :class:`~repro_torch.core.static_index.StaticIndex` tier published by
+    :class:`~repro_torch.core.lifecycle.FreezeManager` (background freeze,
+    atomic swap), merged exactly with the post-freeze dynamic suffix.
+
+Tiering and snapshots::
+
+    eng = Engine(tier_policy=FreezePolicy(every_docs=10_000))
+    eng.lifecycle.freeze()                  # or let the policy trigger it
+    eng.snapshot("snaps/")                  # crash-atomic, core/persist.py
+    eng2 = Engine.restore("snaps/")         # device images on the card
 
 A :class:`~repro_torch.engine.planner.Planner` selects the backend per
 query from term statistics and batch size, with a forced-override knob
 (``Engine(force_backend=...)`` or ``Query(backend=...)``).
 """
 
-from .backends import HostBackend, KernelBackend, UnsupportedQueryError
+from ..core.lifecycle import (
+    FreezeCoordinator,
+    FreezeManager,
+    FreezePolicy,
+    StaticTier,
+)
+from .backends import (
+    HostBackend,
+    KernelBackend,
+    TieredBackend,
+    UnsupportedQueryError,
+)
 from .device_backend import DeviceBackend
 from .engine import Engine
 from .planner import PlanDecision, Planner, PlannerConfig
@@ -39,6 +62,7 @@ from .types import (
 __all__ = [
     "Engine", "Query", "QueryResult", "Planner", "PlannerConfig",
     "PlanDecision", "HostBackend", "DeviceBackend", "KernelBackend",
-    "UnsupportedQueryError",
+    "TieredBackend", "UnsupportedQueryError",
+    "FreezeManager", "FreezePolicy", "StaticTier", "FreezeCoordinator",
     "CollectionStats", "MODES", "POSITIONAL_MODES",
 ]

@@ -1,11 +1,14 @@
-"""Backend interface, the host backend and the kernel backend.
+"""Backend interface, the host, tiered and kernel backends.
 
 The host and kernel backends operate directly on the live
 :class:`~repro_torch.core.index.DynamicIndex` (immediate access is inherited
 for free): the host backend serves every mode with the paper's cursors, the
 kernel backend the doc-level term modes through the hand-written kernels.
-The device backend, which needs an image refresh protocol, lives in
-:mod:`repro_torch.engine.device_backend`.
+The tiered backend serves the frozen docid prefix from the compressed
+:class:`~repro_torch.core.static_index.StaticIndex` tier published by the
+lifecycle (:mod:`repro_torch.core.lifecycle`) and reads the dynamic index
+only past the tier horizon.  The device backend, which needs an image
+refresh protocol, lives in :mod:`repro_torch.engine.device_backend`.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core import query as hostq
+from ..core.index import group_occurrences
 from ..kernels import registry
 from .types import Query, QueryResult
 
@@ -77,6 +81,196 @@ class HostBackend(Backend):
             d, s = hostq.ranked_bm25_prox(idx, query.terms,
                                           eng.doclens_array(), k=query.k,
                                           stats=stats)
+            return QueryResult(d, s, self.name)
+        raise UnsupportedQueryError(f"unknown mode {query.mode!r}")
+
+
+class TieredView:
+    """Index-like facade over static tier + dynamic suffix (disjoint ranges).
+
+    ``postings(term)`` concatenates the tier's compressed list (all docids
+    <= ``horizon``) with the dynamic postings strictly past the horizon —
+    read via a ``PostingsCursor`` sought to ``horizon + 1``, so the frozen
+    prefix of the live chains is skipped block-at-a-time, never decoded.
+    Because docids are ordinal and append-only, the concatenation equals the
+    full dynamic list exactly; feeding this view to the host TAAT scorers
+    (which take any object with ``num_docs``/``postings``) therefore yields
+    results byte-identical to the host backend, while the bulk of each list
+    is served from its most compressed form.
+
+    Word-level engines get the same guarantees at occurrence granularity:
+    ``postings`` concatenates occurrence streams (docids repeat, payload =
+    w-gap) and ``cursor`` chains document-granular POSITIONAL cursors — a
+    :class:`~repro_torch.core.static_index.StaticWordCursor` over the tier with a
+    :class:`~repro_torch.core.query.WordPostingsCursor` over the suffix — so
+    phrase evaluation never materializes either tier.  A document's
+    occurrences never straddle the horizon (each document's postings are
+    written before the next document starts), which is what makes the
+    per-document position lists exact across the chain.
+    """
+
+    def __init__(self, engine, tier):
+        self.engine = engine
+        self.tier = tier                      # StaticTier | None
+        self.horizon = 0 if tier is None else tier.num_docs
+
+    @property
+    def num_docs(self) -> int:
+        return self.engine.index.num_docs
+
+    @property
+    def word_level(self) -> bool:
+        return self.engine.index.word_level
+
+    @property
+    def tombstones(self) -> set:
+        """The live tombstone set — deleted docids are masked across BOTH
+        tiers (the static tier may still hold docs tombstoned after its
+        freeze; the next encode compacts them away)."""
+        return self.engine.index.tombstones
+
+    def ft(self, term) -> int:
+        """f_t with the dynamic index's semantics, from the engine's O(1)
+        global counters (operator-ordering heuristics, e.g. the proximity
+        rarest-first lead, read this — never a chain walk)."""
+        tid = self.engine.term_id(term)
+        return self.engine._fts[tid] if tid is not None else 0
+
+    def suffix_postings(self, term) -> tuple[np.ndarray, np.ndarray]:
+        """Dynamic postings with docid > horizon (cursor-skipped prefix)."""
+        idx = self.engine.index
+        h = idx.lookup(term)
+        if h is None:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        c = hostq.PostingsCursor(idx.store, h)
+        if not c.seek_geq(self.horizon + 1):
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+        ds, fs = [], []
+        while True:
+            ds.append(c.docid)
+            fs.append(c.payload)
+            if not c.next():
+                break
+        return (np.asarray(ds, dtype=np.int64),
+                np.asarray(fs, dtype=np.int64))
+
+    def postings(self, term) -> tuple[np.ndarray, np.ndarray]:
+        d2, f2 = self.suffix_postings(term)
+        if self.tier is None:
+            return d2, f2
+        d1, f1 = self.tier.index.postings(term)
+        if len(d1) == 0:
+            return d2, f2
+        return np.concatenate([d1, d2]), np.concatenate([f1, f2])
+
+    def doc_postings(self, term) -> tuple[np.ndarray, np.ndarray]:
+        """Document-granular postings across both tiers: (unique docids,
+        doc-level f_{t,d}) — what the ranked scorers consume.
+
+        The frozen prefix comes from ``StaticIndex.doc_postings`` (docid +
+        count streams only; the w-gap stream is never decoded), the suffix
+        from grouping the cursor-skipped occurrence stream of
+        ``suffix_postings``.  Documents never straddle the horizon, so
+        concatenation is exact — identical arrays to grouping the full
+        dynamic stream."""
+        if not self.engine.index.word_level:
+            return self.postings(term)
+        docc, _wg = self.suffix_postings(term)
+        d2, f2 = group_occurrences(docc)
+        if self.tier is None:
+            return d2, f2
+        d1, f1 = self.tier.index.doc_postings(term)
+        if len(d1) == 0:
+            return d2, f2
+        return np.concatenate([d1, d2]), np.concatenate([f1, f2])
+
+    def cursor(self, term):
+        """One chained DAAT cursor across both tiers (None = no postings).
+
+        Word-level indexes chain positional, document-granular cursors
+        (payload = f_{t,d}, ``positions()`` live), ready for both the
+        conjunctive and the phrase operators."""
+        parts = []
+        if self.tier is not None:
+            parts.append(self.tier.index.postings_iter(term))
+        idx = self.engine.index
+        h = idx.lookup(term)
+        if h is not None:
+            c = hostq.PostingsCursor(idx.store, h)
+            if self.horizon == 0 or c.seek_geq(self.horizon + 1):
+                parts.append(hostq.WordPostingsCursor(c)
+                             if idx.word_level else c)
+        chained = hostq.ChainedCursor(parts)
+        return None if chained.exhausted else chained
+
+
+class TieredBackend(Backend):
+    """Serve each query from the static tier + dynamic suffix, exactly.
+
+    Boolean conjunctive runs DAAT over :class:`~repro_torch.core.query.
+    ChainedCursor`s (seek_GEQ skipping inside the compressed tier via its
+    bp128 skip tables); ranked modes reuse the host TAAT scorers over the
+    :class:`TieredView` (document-granular via ``doc_postings``, so
+    word-level f_{t,d}/f_t are doc-level and idf/BM25 statistics are the
+    live collection's — the same contract the device backend's frozen+delta
+    merge enforces).  Word-level engines additionally get the positional
+    modes: ``phrase`` and ``proximity`` run positional DAAT over chained
+    static+dynamic word cursors, ``bm25_prox`` scores BM25 + MinDist
+    through the same cursors.  Works with no tier published yet (the view
+    degenerates to the pure dynamic path), so routing to it is always safe.
+    """
+
+    name = "tiered"
+
+    def view(self) -> TieredView:
+        return TieredView(self.engine, self.engine.static_tier())
+
+    def execute(self, query: Query) -> QueryResult:
+        eng = self.engine
+        view = self.view()
+        stats = eng.ranking_stats()   # deletion-aware (N, f_t, avgdl) or None
+        if query.mode in ("phrase", "proximity", "bm25_prox") \
+                and not eng.index.word_level:
+            raise UnsupportedQueryError(
+                f"{query.mode} queries need a word-level index (§5.1)")
+        if query.mode == "phrase":
+            # one fresh positional cursor per phrase slot, in phrase order
+            d = hostq.phrase_from_cursors(
+                [view.cursor(t) for t in query.terms])
+            d = hostq._drop_dead(d, hostq._tombstones(view))
+            return QueryResult(d, None, self.name)
+        if query.mode == "proximity":
+            # one positional cursor per UNIQUE term + its multiplicity:
+            # repeated query terms must bind distinct positions
+            d = hostq.proximity_query(view, query.terms, query.window)
+            return QueryResult(d, None, self.name)
+        if query.mode == "bm25_prox":
+            d, s = hostq.ranked_bm25_prox(view, query.terms,
+                                          eng.doclens_array(), k=query.k,
+                                          stats=stats)
+            return QueryResult(d, s, self.name)
+        if query.mode == "conjunctive":
+            cursors = []
+            for t in query.terms:
+                c = view.cursor(t)
+                if c is None:
+                    return QueryResult(np.zeros(0, np.int64), None, self.name)
+                tid = eng.term_id(t)
+                cursors.append((eng._fts[tid] if tid is not None else 0, c))
+            if not cursors:
+                return QueryResult(np.zeros(0, np.int64), None, self.name)
+            # rarest-first via the engine's O(1) global f_t counters
+            cursors.sort(key=lambda p: p[0])
+            d = hostq.conjunctive_from_cursors([c for _, c in cursors])
+            d = hostq._drop_dead(d, hostq._tombstones(view))
+            return QueryResult(d, None, self.name)
+        if query.mode == "ranked_tfidf":
+            d, s = hostq.ranked_disjunctive_taat(view, query.terms,
+                                                 k=query.k, stats=stats)
+            return QueryResult(d, s, self.name)
+        if query.mode == "bm25":
+            d, s = hostq.ranked_bm25(view, query.terms, eng.doclens_array(),
+                                     k=query.k, stats=stats)
             return QueryResult(d, s, self.name)
         raise UnsupportedQueryError(f"unknown mode {query.mode!r}")
 

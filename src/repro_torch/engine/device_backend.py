@@ -93,13 +93,17 @@ class ResidentImageManager:
     # image lifecycle
     # ------------------------------------------------------------------
 
-    def freeze(self) -> None:
-        """Adopt the engine's (just-collated) index as the frozen image and
-        rebase the delta to empty.  Called by ``Engine.collate_now`` — the
-        ONLY point at which the full block array is uploaded."""
+    def freeze(self, collated=None) -> None:
+        """Adopt a collated image of the engine's index as the frozen image
+        and rebase the delta to empty — the ONLY point at which the full
+        block array is uploaded.  ``collated`` None takes the engine's own
+        index, just collated by ``Engine.collate_now``; a snapshot restore
+        passes a collated copy and keeps the restored layout live.  The
+        delta baseline is always captured from the live index."""
         eng = self.engine
-        self._frozen_raw = build_device_image(eng.index, eng.vocab,
-                                              device=eng.device)
+        self._frozen_raw = build_device_image(
+            eng.index if collated is None else collated, eng.vocab,
+            device=eng.device)
         self._frozen_nblk = self._frozen_raw.term_nblk.cpu().numpy()
         self._frozen_mb = _pow2(int(self._frozen_nblk.max())
                                 if len(self._frozen_nblk) else 1)

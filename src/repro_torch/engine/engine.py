@@ -1,12 +1,14 @@
-"""The Engine: one ingest+query front door over the host, device and
-kernel backends.
+"""The Engine: one ingest+query front door over the host, device, kernel
+and tiered backends.
 
 Owns the live :class:`~repro_torch.core.index.DynamicIndex`, the
 document-length array (BM25 state the paper places outside the core index,
-§3.6), the term-id vocabulary shared with the device images, and the
-planner.  The device images and the kernel backend's tensors live on
-``Engine.device``: the card by default, the CPU when the caller asks for it
-(then every op runs its plain PyTorch version).
+§3.6), the term-id vocabulary shared with the device images, the planner
+and, once tiering is enabled, the static-tier lifecycle.  The device images
+and the kernel backend's tensors live on ``Engine.device``: the card by
+default, the CPU when the caller asks for it (then every op runs its plain
+PyTorch version).  ``snapshot``/``restore`` persist and rebuild the engine
+(``core/persist.py``).
 """
 
 from __future__ import annotations
@@ -19,12 +21,18 @@ import torch
 from ..core.collate import collate
 from ..core.device_index import resolve_device
 from ..core.index import DynamicIndex, group_occurrences
+from ..core.lifecycle import FreezeManager, FreezePolicy
 from ..core.prepare import prepare_batch
 from ..core.query import CollectionStats, TermStats
-from .backends import HostBackend, KernelBackend, UnsupportedQueryError
+from .backends import (
+    HostBackend,
+    KernelBackend,
+    TieredBackend,
+    UnsupportedQueryError,
+)
 from .device_backend import DeviceBackend, ResidentImageManager
 from .planner import Planner, PlannerConfig
-from .types import EngineStats, Query, QueryResult
+from .types import POSITIONAL_MODES, EngineStats, Query, QueryResult
 
 
 class _LiveFtMap:
@@ -47,7 +55,7 @@ class _LiveFtMap:
 
 
 class Engine:
-    """Planner/executor over the host, device and kernel backends.
+    """Planner/executor over the host, device, kernel and tiered backends.
 
     Parameters
     ----------
@@ -67,6 +75,13 @@ class Engine:
         the block decode of the device backend's split path
         (``DeviceBackend(use_fused=False)``); None takes the
         ``dvbyte_decode`` op.
+    tier_policy:
+        enable the tiered static lifecycle (``core.lifecycle``): a
+        :class:`~repro_torch.core.lifecycle.FreezeManager` converts the
+        frozen docid prefix into a compressed :class:`StaticIndex` tier on
+        a background thread per this policy, and the tiered backend serves
+        the prefix from it.  Each freeze also collates and re-uploads the
+        frozen device image on the caller's thread.
     """
 
     def __init__(self, B: int = 64, growth: str = "const",
@@ -76,7 +91,8 @@ class Engine:
                  force_backend: str | None = None,
                  delta_compact_frac: float | None = 0.25,
                  delta_compact_min_blocks: int = 512,
-                 device=None, decode_fn=None):
+                 device=None, decode_fn=None,
+                 tier_policy: FreezePolicy | None = None):
         self.device = resolve_device(device)
         self.index = index if index is not None else DynamicIndex(
             B=B, growth=growth, F=F, word_level=word_level)
@@ -109,9 +125,27 @@ class Engine:
             "host": HostBackend(self),
             "device": DeviceBackend(self, self.resident),
             "kernel": KernelBackend(self, resident=self.resident),
+            "tiered": TieredBackend(self),
         }
+        self.lifecycle: FreezeManager | None = None
+        if tier_policy is not None:
+            self.enable_tiering(tier_policy)
         if index is not None:
             self._adopt_existing()
+
+    def enable_tiering(self, policy: FreezePolicy | None = None
+                       ) -> FreezeManager:
+        """Attach (or reconfigure) the static-tier lifecycle (doc-level and
+        word-level engines alike — word-level tiers keep positions, so
+        phrase queries serve from the compressed tier too)."""
+        self.lifecycle = FreezeManager(self, policy)
+        return self.lifecycle
+
+    def static_tier(self):
+        """The published :class:`~repro_torch.core.lifecycle.StaticTier`
+        (or None); swapped atomically by the lifecycle's background
+        freeze."""
+        return self.lifecycle.tier if self.lifecycle is not None else None
 
     def _adopt_existing(self) -> None:
         """Register terms/doclens of a pre-built index (doclens are
@@ -139,12 +173,13 @@ class Engine:
     def _rebuild_forward(self) -> None:
         """Derive the forward index, live word-level document frequencies
         and the deleted-token total from the inverted chains + tombstone
-        set."""
+        set.  Used by ``_adopt_existing`` and snapshot restore — the chains
+        and live ``_fts`` are the persisted state of record."""
         word = self.index.word_level
         doc_tids: list = [[] for _ in range(self.index.num_docs + 1)]
-        for term, _h in self.index.terms():
+        for term, h_ptr in self.index.terms():
             tid = self._tid[term]
-            d, f = self.index.postings(term)
+            d, f = self.index.store.decode_postings(h_ptr)
             ud, cnt = group_occurrences(d) if word else (d, f)
             for dd, cc in zip(ud.tolist(), cnt.tolist()):
                 doc_tids[dd].append((tid, cc))
@@ -247,6 +282,8 @@ class Engine:
         sc.ingest_docs += 1
         sc.ingest_batches += 1
         sc.ingest_time_s += time.perf_counter() - t0
+        if self.lifecycle is not None:
+            self.lifecycle.maybe_freeze()
         return d
 
     def add_documents(self, docs) -> list[int]:
@@ -335,6 +372,8 @@ class Engine:
         sc.ingest_docs += len(prepared)
         sc.ingest_batches += 1
         sc.ingest_time_s += time.perf_counter() - t0
+        if self.lifecycle is not None:
+            self.lifecycle.maybe_freeze()
         return dids
 
     def delete_document(self, docid: int) -> list[tuple[int, int]]:
@@ -392,7 +431,12 @@ class Engine:
                      for t in q.terms]
             plans.append(self.planner.plan(
                 q, len(queries), stats, device_capable=self.device_capable,
-                kernel_capable=self.kernel_capable))
+                kernel_capable=self.kernel_capable,
+                tiered_available=self.static_tier() is not None,
+                # the tiered backend serves every mode; positional modes
+                # additionally need word positions (as does the host path)
+                tiered_capable=(self.index.word_level
+                                if q.mode in POSITIONAL_MODES else True)))
         out: list[QueryResult | None] = [None] * len(queries)
         by_backend: dict[str, list[int]] = {}
         for i, p in enumerate(plans):
@@ -412,6 +456,35 @@ class Engine:
         return out  # type: ignore[return-value]
 
     # ------------------------------------------------------------------
+    # persistence (core/persist.py)
+    # ------------------------------------------------------------------
+
+    def snapshot(self, root: str, *, keep: int = 3,
+                 quiesce: bool = False) -> str:
+        """Persist this engine under ``root`` (crash-atomic: staged write,
+        manifest last, one rename — see ``core.persist``).  Returns the
+        published snapshot dir.  Runs on the writer thread; safe while a
+        background freeze is encoding (the snapshot captures the currently
+        PUBLISHED tier plus the full dynamic image, which restores
+        byte-identically at any horizon).  ``quiesce=True`` first joins an
+        in-flight encode so the newest tier lands in the snapshot."""
+        from ..core import persist
+        if quiesce and self.lifecycle is not None:
+            self.lifecycle.quiesce()
+        return persist.save_engine(self, root, keep=keep)
+
+    @classmethod
+    def restore(cls, path_or_root: str, **engine_kwargs) -> "Engine":
+        """Rebuild an engine from a snapshot dir (or the newest snapshot
+        under a root).  ``engine_kwargs`` forwards runtime knobs (device,
+        planner, force_backend, decode_fn, ...); index shape and freeze
+        policy come from the manifest.  Like the constructor, the device
+        images go to the card unless ``device`` says otherwise; a
+        device-capable engine's frozen image is uploaded here."""
+        from ..core import persist
+        return persist.restore_engine(path_or_root, **engine_kwargs)
+
+    # ------------------------------------------------------------------
     # observability
     # ------------------------------------------------------------------
 
@@ -422,6 +495,10 @@ class Engine:
         s.num_postings = self.index.num_postings
         s.num_words = self.index.num_words
         s.vocab_size = len(self.vocab)
+        if self.lifecycle is not None:
+            s.freezes = self.lifecycle.freezes
+            s.tier_epoch = self.lifecycle.epoch
+            s.tombstones_compacted = self.lifecycle.tombstones_compacted
         return s
 
 

@@ -12,12 +12,12 @@ MODES = ("conjunctive", "ranked_tfidf", "bm25", "phrase", "proximity",
          "bm25_prox")
 
 #: Modes that consume word positions: they require a word-level index and
-#: run only on the host backend — forcing them onto the device backend
-#: raises.
+#: run only on the backends that model positions (host / tiered) — forcing
+#: them onto the device or kernel backends raises.
 POSITIONAL_MODES = ("phrase", "proximity", "bm25_prox")
 
 #: Backends a query may force via ``Query.backend``.
-BACKENDS = ("host", "device", "kernel")
+BACKENDS = ("host", "device", "kernel", "tiered")
 
 
 @dataclass(frozen=True)
@@ -94,6 +94,9 @@ class EngineStats:
 
     num_docs: int = 0         # ordinal docid horizon (includes tombstoned)
     deleted_docs: int = 0     # tombstoned docids still masked at serve time
+    tombstones_compacted: int = 0  # dead docids dropped from the static
+    #                                tier by freeze-time compaction (the
+    #                                published tier's count)
     num_postings: int = 0
     num_words: int = 0        # total tokens ingested (= postings, word-level)
     vocab_size: int = 0
@@ -110,4 +113,6 @@ class EngineStats:
     delta_compactions: int = 0  # refreshes that hit the fragmentation
     #                             threshold and collated instead
     resident_uploads: int = 0   # full device-image uploads (1 per freeze)
+    freezes: int = 0          # static-tier freezes completed (lifecycle)
+    tier_epoch: int = 0       # epoch of the published static tier
     by_backend: dict = field(default_factory=dict)

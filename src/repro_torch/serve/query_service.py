@@ -12,9 +12,10 @@ Asadi & Lin's) concurrency model, and a thread-safe wrapper can wrap
 ``submit``/``flush`` without touching engine internals.
 
 **Result cache**: repeated queries between ingests are answered from a small
-LRU keyed by ``(engine.version, query)``: every ingest or delete bumps
-``version``, so invalidation is free — a stale entry can never be returned,
-it simply stops being addressable.  Entries are
+LRU keyed by ``(engine.version, static-tier epoch, query)``: every ingest or
+delete bumps ``version`` and every lifecycle tier swap bumps the epoch, so
+invalidation is free — a stale entry can never be returned, it simply stops
+being addressable.  Entries are
 bounded by ``cache_size`` (0 disables caching entirely).
 """
 
@@ -60,14 +61,19 @@ class QueryService:
     # -- result cache ----------------------------------------------------
 
     def _cache_key(self, query: Query) -> tuple | None:
-        """(version, query) — None when the engine exposes no version
-        counter or caching is off."""
+        """(version, tier epoch, query) — None when the engine exposes no
+        version counter or caching is off.  The epoch is the lifecycle's
+        published tier epoch (0 without tiering): a background freeze
+        swaps the tier without an ingest, so the version alone would keep
+        serving entries computed against the previous tier."""
         if self.cache_size <= 0:
             return None
         version = getattr(self.engine, "version", None)
         if version is None:
             return None
-        return (version, query)
+        lifecycle = getattr(self.engine, "lifecycle", None)
+        epoch = lifecycle.epoch if lifecycle is not None else 0
+        return (version, epoch, query)
 
     @staticmethod
     def _copy_result(r: QueryResult) -> QueryResult:
@@ -159,7 +165,11 @@ class QueryService:
         batch, self._pending = self._pending, []
         if not batch:
             return []
-        # the key is computed ONCE per ticket and reused at store time
+        # the key is computed ONCE per ticket and reused at store time: a
+        # background freeze may bump lifecycle.epoch while execute_many
+        # runs, and recomputing the key there would file the result under
+        # an engine state it was never computed against (a later query at
+        # the new epoch would then hit a stale entry)
         misses: list[tuple[Ticket, tuple | None]] = []
         for t in batch:
             key = self._cache_key(t.query)
@@ -203,8 +213,9 @@ class QueryService:
         return t.result
 
     def phrase(self, terms, backend: str | None = None) -> QueryResult:
-        """Synchronous phrase query over a word-level engine (results are
-        cached under the same version key as every other mode)."""
+        """Synchronous phrase query over a word-level engine (served from
+        the compressed static tier when one is published; results are
+        cached under the same version/epoch key as every other mode)."""
         return self.query(Query(terms=tuple(terms), mode="phrase",
                                 backend=backend))
 
