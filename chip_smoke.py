@@ -11,6 +11,7 @@
                                            # against another revision's
     python3 chip_smoke.py --tier-only      # the Const ingest and the tier
                                            # phase alone
+    python3 chip_smoke.py --fleet-only     # the fleet phase alone
 
 Phases, each printing its own lines; the first failed check exits non-zero:
 
@@ -34,10 +35,13 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      row blocking, d off its 256-float pass, C's base one row and one float
      along) within ``DENSE_ATOL`` of its plain version; and
      ``tests/test_torch_gpu_kernels.py`` (``fused_query`` at the edges of
-     its docid ranges) and ``tests/test_torch_gpu_term_kernels.py``
+     its docid ranges), ``tests/test_torch_gpu_term_kernels.py``
      (``dvbyte_decode`` on chain blocks and constructed rows, ``intersect``
-     at its tile and buffer edges with 1-9 further lists), which import no
-     jax, in a ``pytest -m gpu`` subprocess;
+     at its tile and buffer edges with 1-9 further lists) and
+     ``tests/test_torch_gpu_dense_kernels.py`` (``topk_score`` at its tile
+     edges and up to 40 segments, ``retrieval_dot`` at its blocking edges
+     in float32 and bf16), which import no jax, in a ``pytest -m gpu``
+     subprocess;
   3. the Const main path: the first ``--docs`` documents (default
      ``CONST_DOCS``, the cut that keeps the whole run under about 900 s of
      its 1,200 s limit; 98,732 is the full stream) of the WSJ1-like stream
@@ -105,15 +109,39 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      engine's default (``delta_compact_frac=0.25``) a delta this large
      re-collates the whole index at the first refresh and leaves the delta
      empty; the ``[compaction]`` line prints the projection that decides it;
-  4. Path A, the variable-growth kernel backend: the first
-     ``TRIANGLE_DOCS`` documents of the WSJ1-like stream (cut, like the
-     Const path, to 73,728) into ``Engine(B=64, growth="triangle")``
-     (paper §5.4, no device image) through ``QueryService(max_batch=32,
-     cache_size=0)`` in batches of 256, its bytes per posting beside the
-     Const path's at the same document count (the same stream prefix),
-     and one query round at 90 % of one batch of 32 queries per mode,
-     unforced (the planner's kernel/host split is printed) and then forced
-     to ``backend="kernel"``.  Every answer is held
+  4. the fleet phase (:func:`fleet_phase`; also alone by
+     ``--fleet-only``): ``ShardedEngine(num_shards=2, B=64,
+     growth="const", delta_compact_frac=None)`` on the card behind
+     ``QueryService(max_batch=32, pipelined=True)``; the first
+     ``FLEET_DOCS`` documents of the WSJ1-like stream through
+     ``ingest_batch`` in batches of 256 (the per-shard writer threads
+     append, the drain in ``flush`` is the barrier), ``collate_now()`` on
+     both shards at the batch boundary nearest 90 % and a batch of 32
+     queries per mode right after it, 8 deletes per batch of 256 after
+     it, a batch of 32 per mode at the end of the stream, then
+     ``run_traffic`` over the service (a seeded schedule of
+     ``TRAFFIC_EVENTS`` events: 20 % ingests of the next 256 documents, 1
+     % deletes, Zipf queries from 64 distinct ones) and one more batch of
+     32 per mode.  Every batch's answers are held against the fleet's
+     host backend (conjunctive exactly, ranked with the near-tie rule)
+     and each shard's ``fused_query`` launches against one per group
+     with a query live on it; the traffic must leave no request
+     unanswered and must send batches to the device.  It prints the
+     pipelined ingest's docs/s beside the Const path's synchronous rate,
+     each shard's refresh after an ingest, an engine batch's ms through
+     the fleet beside the single engine's, and the traffic's latency
+     percentiles and cache hit rate;
+  5. Path A, the variable-growth kernel backend: the first
+     ``TRIANGLE_DOCS`` documents of the WSJ1-like stream (cut to 36,864
+     for the tier and fleet phases) into ``Engine(B=64,
+     growth="triangle")`` (paper §5.4, no device image) through
+     ``QueryService(max_batch=32, cache_size=0)`` in batches of 256, its
+     bytes per posting beside the Const path's at the same document
+     count (the same stream prefix), one query round at 90 % of one batch
+     of 32 queries per mode, unforced (the planner's kernel/host split is
+     printed) and then forced to ``backend="kernel"``, and at the end 8
+     deletes and a second, untimed round the same way (``intersect`` and
+     ``topk_score`` with tombstones).  Every answer is held
      against the host backend, the ``intersect`` and ``topk_score`` launch
      counts must equal the expected ones (one ``intersect`` launch per
      kernel-served conjunctive query of two or more terms, all with
@@ -123,7 +151,7 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      on its grid, the launch floor); then ``topk_score`` on
      seeded inputs of 9 and 40 segments over the same docids (off the
      path: a ranked query has 1-4 terms);
-  5. one JSON line listing each kernel with its launches, parity error,
+  6. one JSON line listing each kernel with its launches, parity error,
      times and bound; the card again; and as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -139,6 +167,7 @@ have a library call on seeded inputs at the paths' shapes (``topk_score``
 also at 9 and 40 segments); it drives no path and prints no result line.
 ``--tier-only`` builds only ``fused_query``, builds the Const engine as
 phase 3 does (without the split path) and runs the tier phase on it.
+``--fleet-only`` builds only ``fused_query`` and runs phase 4 alone.
 ``--fused-only PT`` builds only ``fused_query`` and times it on phase 3's
 first prepared batch of 32 queries per mode, read from PT, or first
 written there from a Const engine built as phase 3 builds it (a CRC of
@@ -174,13 +203,21 @@ REPS = 20                      # timed calls of a plain version or a batch
 LAUNCHES = 20                  # back-to-back kernel launches per timed run
 RUNS = 7                       # timed runs per turn
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-TRIANGLE_DOCS = 73_728         # Path A's stream: WSJ1-like, cut to the
-                               # Const path's count (full: 98,732) to make
-                               # room for the tier phase
+TRIANGLE_DOCS = 36_864         # Path A's stream: WSJ1-like, cut (full:
+                               # 98,732) to make room for the tier phase
+                               # and then the fleet phase; a batch
+                               # boundary of the Const path, which records
+                               # its bytes/posting there
+FLEET_DOCS = 24_576            # the fleet phase's stream: the first 24,576
+                               # WSJ1-like documents, 12,288 a shard (a cut
+                               # of 98,732 for time: 32,768 took the run
+                               # past its time budget)
+TRAFFIC_EVENTS = 500           # the fleet phase's traffic schedule (cut
+                               # from 1,000 for time)
 CONST_DOCS = 73_728            # the Const path's stream, cut (full: 98,732):
-                               # 288 batches of 256, so Path A's engine
-                               # passes the same count at a batch boundary;
-                               # it keeps the full stream's device shapes
+                               # 288 batches of 256, passing
+                               # TRIANGLE_DOCS at a batch boundary; it
+                               # keeps the full stream's device shapes
                                # (docid capacity 131,072, frozen chain cap
                                # 4,096: ~2,240 blocks at the freeze)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
@@ -191,7 +228,8 @@ DENSE_ATOL = 1e-6              # retrieval_dot vs its plain version on unit
 TOP = 10                       # the hybrid path's dense top k
 #: the jax-free kernel cases, run on the card in phase 2
 GPU_TESTS = ("tests/test_torch_gpu_kernels.py",
-             "tests/test_torch_gpu_term_kernels.py")
+             "tests/test_torch_gpu_term_kernels.py",
+             "tests/test_torch_gpu_dense_kernels.py")
 #: kernel -> the TPU kernel it replaces (file:line of the function that
 #: reaches pl.pallas_call in the JAX package)
 REPLACES = {
@@ -478,16 +516,19 @@ def cuda_ms(fn, reps: int, warm: int = 3) -> float:
 # --------------------------------------------------------------------------
 
 
-def zipf_queries(rng, names, probs, eng, n, mode):
+def zipf_queries(rng, names, probs, eng, n, mode, known=None):
     """``n`` queries of 1–4 terms drawn by Zipf rank among ``names``,
-    keeping only terms the engine has seen."""
+    keeping only known terms: by default, terms engine ``eng`` has seen."""
     out = []
     from repro_torch.engine import Query
+    if known is None:
+        def known(t):
+            return eng.term_id(t) is not None
     while len(out) < n:
         nt = int(rng.integers(1, 5))
         ranks = rng.choice(len(names), size=nt, p=probs)
         terms = tuple(dict.fromkeys(names[r] for r in ranks.tolist()))
-        if all(eng.term_id(t) is not None for t in terms):
+        if all(known(t) for t in terms):
             out.append(Query(terms=terms, mode=mode, k=K))
     return out
 
@@ -547,6 +588,8 @@ def gpu_tests() -> None:
         f"B < 64, an "
         f"unaligned base; intersect with empty lists, PAD, a below or above "
         f"b, windows across tiles and past the buffer, 1-9 further lists; "
+        f"topk_score at its tile edges and up to 40 segments; retrieval_dot "
+        f"at its blocking edges, float32 and bf16, integer rows exactly; "
         f"each against its plain version, reruns): {lines[-1]} "
         f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1120,7 +1163,8 @@ def const_engine(n_docs: int, rng, on_delta=None) -> dict:
     256, ``collate_now()`` at 90 %, then 8 deletes per batch.  ``on_delta``
     (eng, rng, names, probs), if given, runs once after the first
     post-freeze batch, before any delete; its result is returned as
-    ``split``."""
+    ``split``.  The index's bytes per posting at ``TRIANGLE_DOCS``
+    documents, Path A's count, are returned as ``bpp_at``."""
     import torch
     from repro_torch.data.corpus import WSJ1_LIKE, SyntheticCorpus, term_table
     from repro_torch.engine import Engine
@@ -1141,7 +1185,7 @@ def const_engine(n_docs: int, rng, on_delta=None) -> dict:
     dead: set[int] = set()
     batch: list[list[str]] = []
     t_gen = time.perf_counter()
-    collate_s = None
+    collate_s = bpp_at = None
     for ids in corpus.doc_term_ids():
         batch.append([names[i] for i in ids.tolist()])
         text_bytes += int(name_len[ids].sum()) + len(ids)
@@ -1149,6 +1193,8 @@ def const_engine(n_docs: int, rng, on_delta=None) -> dict:
         if len(batch) == 256 or done == freeze_at or done == n_docs:
             svc.ingest_batch(batch)
             batch.clear()
+            if eng.index.num_docs == TRIANGLE_DOCS:
+                bpp_at = eng.index.bytes_per_posting()
             if eng.index.num_docs == freeze_at:
                 t0 = time.perf_counter()
                 eng.collate_now()
@@ -1164,6 +1210,7 @@ def const_engine(n_docs: int, rng, on_delta=None) -> dict:
                         svc.delete(d)
     return dict(eng=eng, svc=svc, corpus=corpus, names=names, probs=probs,
                 split=split, freeze_at=freeze_at, collate_s=collate_s,
+                bpp_at=bpp_at,
                 text_bytes=text_bytes, wall_s=time.perf_counter() - t_gen)
 
 
@@ -1535,14 +1582,18 @@ def main_path(n_docs: int) -> dict:
     mean = lambda d: float(np.mean([d[m] for m in MODES]))   # noqa: E731
     if split is None:
         fail("the stream ended before the split path ran")
-    const_index = (eng.index.bytes_per_posting(), eng.index.num_docs)
+    if c["bpp_at"] is None:
+        fail(f"the Const stream never reached Path A's {TRIANGLE_DOCS} "
+             f"documents")
+    const_index = (c["bpp_at"], TRIANGLE_DOCS)
     tier = tier_phase(eng, svc, corpus, names, groups[:3])
     hybrid = hybrid_phase(eng, corpus, names, probs, rng)
     return {"launches": launches, "max_abs_err": err, "ms": mean(ms),
             "plain_ms": mean(plain_ms), "bound_ms": mean(bound),
             "bound_by": bound_by, "tier_phase_launches": tier["launches"],
             "library_ms": None, "split": split, "hybrid": hybrid,
-            "index": const_index}
+            "index": const_index, "e2e": e2e,
+            "ingest_rate": st.num_docs / ingest_s}
 
 
 def tier_only(n_docs: int) -> None:
@@ -1752,7 +1803,224 @@ def tier_phase(eng, svc, corpus, names, batches) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 4: Path A, the variable-growth kernel backend at full scale
+# phase 4: the host fleet behind the pipelined service
+# --------------------------------------------------------------------------
+
+
+def live_on(eng, q) -> bool:
+    """Whether ``q`` needs shard ``eng``'s fused launch (``pack_queries``'s
+    rule): a conjunctive query every term of which the shard has seen, a
+    ranked one with at least one such term."""
+    ids = [eng.term_id(t) for t in q.terms]
+    if q.mode == "conjunctive":
+        return bool(ids) and None not in ids
+    return any(i is not None for i in ids)
+
+
+def fleet_round(fleet, svc, groups, label: str) -> list:
+    """Each group of 32 through the pipelined service (one flush, one
+    fan-out); every answer against the fleet's host backend; each shard's
+    ``fused_query`` launches against one per group with a query live on
+    it, the ones the service answers from its cache left out."""
+    import torch
+    from repro_torch.kernels.fused_query import kernel as fq_kernel
+    tickets = []
+    for qs in groups:
+        served = [e.resident.batches_served for e in fleet.engines]
+        before = fq_kernel.launches
+        misses = [q for q in dict.fromkeys(qs)
+                  if svc._cache_key(q) not in svc._cache]
+        want = [int(any(live_on(e, q) for q in misses))
+                for e in fleet.engines]
+        ts = [svc.submit(q) for q in qs]        # 32 fill a batch: flush
+        torch.cuda.synchronize()
+        got = [e.resident.batches_served - b
+               for e, b in zip(fleet.engines, served)]
+        if got != want or fq_kernel.launches - before != sum(want):
+            fail(f"{label} {qs[0].mode}: fused_query launches per shard "
+                 f"{got} ({fq_kernel.launches - before} in all), expected "
+                 f"{want}")
+        if any(t.result.backend != "device" for t in ts):
+            fail(f"a {label} {qs[0].mode} query was not served by every "
+                 f"shard's device backend")
+        tickets += ts
+    check_against_host(fleet, [t.result for t in tickets],
+                       [t.query for t in tickets], f"fleet {label}")
+    return tickets
+
+
+def fleet_phase(const: dict | None) -> dict:
+    """Phase 4: a two-shard fleet on the card behind the pipelined
+    service.  ``const`` holds the Const path's ingest rate and batch ms
+    for comparison (None with ``--fleet-only``)."""
+    import torch
+    from repro_torch.core.sharded_index import ShardedEngine
+    from repro_torch.data.corpus import WSJ1_LIKE, SyntheticCorpus, term_table
+    from repro_torch.kernels.fused_query import kernel as fq_kernel
+    from repro_torch.serve import (QueryService, WorkloadSpec,
+                                   generate_schedule, run_traffic)
+    card = card_line()
+    t_phase = time.perf_counter()
+    spec = WSJ1_LIKE.scaled(FLEET_DOCS + 256)
+    names = term_table(spec.universe)
+    probs = 1.0 / np.arange(1, spec.universe + 1) ** spec.zipf_s
+    probs /= probs.sum()
+    t0 = time.perf_counter()
+    docs = [[names[i] for i in ids.tolist()]
+            for ids in SyntheticCorpus(spec).doc_term_ids()]
+    gen_s = time.perf_counter() - t0
+    stream, more = docs[:FLEET_DOCS], docs[FLEET_DOCS:]
+    fq_kernel.launches = 0          # counts from here are the fleet's
+    fleet = ShardedEngine(num_shards=2, B=64, growth="const",
+                          delta_compact_frac=None)
+    svc = QueryService(fleet, max_batch=32, pipelined=True)
+    rng = np.random.default_rng(4096)
+
+    def known(t):
+        return fleet._ft.get(t.encode(), 0) > 0
+
+    def draw():
+        return [zipf_queries(rng, names, probs, None, 32, mode, known=known)
+                for mode in MODES]
+
+    def drain() -> float:
+        t = time.perf_counter()
+        svc.pipeline.drain()
+        return time.perf_counter() - t
+
+    freeze_at = round(FLEET_DOCS * 0.9 / 256) * 256
+    dead: set[int] = set()
+    ingest_s = collate_s = 0.0
+    for i in range(0, FLEET_DOCS, 256):
+        t = time.perf_counter()
+        svc.ingest_batch(stream[i:i + 256])
+        ingest_s += time.perf_counter() - t
+        done = i + 256
+        if done == freeze_at:
+            ingest_s += drain()
+            t = time.perf_counter()
+            fleet.collate_now()
+            torch.cuda.synchronize()
+            collate_s = time.perf_counter() - t
+            fleet_round(fleet, svc, draw(), "right after the freeze")
+        elif done > freeze_at:
+            ingest_s += drain()
+            for _ in range(8):              # tombstone on the way
+                d = int(rng.integers(1, fleet.num_docs + 1))
+                if d not in dead:
+                    dead.add(d)
+                    svc.delete(d)
+    ingest_s += drain()
+    st = fleet.stats()
+    writer_s = [e.stats().ingest_time_s for e in fleet.engines]
+    rate = FLEET_DOCS / ingest_s
+    const_rate = (f"{const['ingest_rate']:.1f} docs/s" if const
+                  else "not measured in this run")
+    say(f"[fleet] pipelined ingest: {FLEET_DOCS} docs ({st.num_postings} "
+        f"postings, {st.vocab_size} terms) into 2 shards of "
+        f"{[e.index.num_docs for e in fleet.engines]} docs in "
+        f"{ingest_s:.3f} s of ingest_batch and drains: {rate:.1f} docs/s "
+        f"(writer threads {writer_s[0]:.3f} + {writer_s[1]:.3f} s inside "
+        f"add_documents; generation {gen_s:.3f} s apart); the Const path's "
+        f"synchronous add_documents {const_rate} ({card})")
+    # each shard's refresh after the stream's last ingest and deletes
+    refresh_s = []
+    for e in fleet.engines:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        e.resident.refresh()
+        torch.cuda.synchronize()
+        refresh_s.append(time.perf_counter() - t)
+    frozen = fleet.engines[0].resident.images[0]
+    say(f"[fleet] collate_now at {freeze_at} docs {collate_s:.3f} s (both "
+        f"shards); {len(dead)} deletes after it; per shard: docid capacity "
+        f"{frozen.num_docs}, delta "
+        f"{[e.resident.delta_blocks for e in fleet.engines]} blocks, "
+        f"the first refresh after the stream's last "
+        f"{FLEET_DOCS - freeze_at} documents and deletes "
+        + " / ".join(f"{s:.3f}" for s in refresh_s)
+        + f" s; fleet N {fleet.num_docs - fleet.deleted_docs} ({card})")
+    last = fleet_round(fleet, svc, draw(), "at the end of the stream")
+    groups = [[t.query for t in last[i:i + 32]] for i in range(0, 96, 32)]
+    fleet_ms = {qs[0].mode: host_ms(lambda: fleet.execute_many(qs), REPS)
+                for qs in groups}
+    pool, fleet._pool = fleet._pool, None       # the same, fanned out serially
+    serial_ms = {qs[0].mode: host_ms(lambda: fleet.execute_many(qs), REPS)
+                 for qs in groups}
+    fleet._pool = pool
+    say("[time] fleet engine batch of 32 (ShardedEngine.execute_many, two "
+        "shards on one card, fan-out on 2 threads), ms: "
+        + ", ".join(f"{m} {fleet_ms[m]:.4f}" for m in MODES)
+        + "; fanned out serially: "
+        + ", ".join(f"{m} {serial_ms[m]:.4f}" for m in MODES)
+        + "; the single engine's: "
+        + (", ".join(f"{m} {const['e2e'][m]:.4f}" for m in MODES)
+           if const else "not measured in this run")
+        + f" (host clock, medians of {REPS}) ({card})")
+
+    # ---- traffic ---------------------------------------------------------
+    wspec = WorkloadSpec(seed=0, num_events=TRAFFIC_EVENTS,
+                         ingest_fraction=0.2, delete_fraction=0.01,
+                         num_distinct_queries=64, max_terms=3, k=K)
+    before = fleet.stats().by_backend.get("device", 0)
+    zips = list(zip(fleet.engines,
+                    [e.stats().delta_refreshes for e in fleet.engines]))
+    hits0, misses0 = svc.cache_hits, svc.cache_misses
+    spent: list[float] = []         # each shard refresh that rebuilt, s
+
+    def clocked(real):
+        def run():
+            t = time.perf_counter()
+            rebuilt = real()
+            if rebuilt:
+                torch.cuda.synchronize()
+                spent.append(time.perf_counter() - t)
+            return rebuilt
+        return run
+
+    for e in fleet.engines:
+        e.resident.refresh = clocked(e.resident.refresh)
+    t = time.perf_counter()
+    rep = run_traffic(fleet, generate_schedule(wspec, list(names)), more,
+                      service=svc)
+    traffic_s = time.perf_counter() - t
+    for e in fleet.engines:
+        del e.resident.refresh          # the method again
+    st = fleet.stats()
+    device = st.by_backend.get("device", 0) - before
+    hits, misses = svc.cache_hits - hits0, svc.cache_misses - misses0
+    say(f"[traffic] {rep.num_events} events ({rep.num_queries} queries, "
+        f"{rep.num_ingests} ingests, {rep.num_deletes} deletes) in "
+        f"{traffic_s:.3f} s: p50 {rep.p50_ms:.4f} ms, p99 {rep.p99_ms:.4f} "
+        f"ms, p999 {rep.p999_ms:.4f} ms, mean {rep.mean_ms:.4f} ms, max "
+        f"{rep.max_ms:.4f} ms; {rep.qps:.1f} queries/s; cache hit rate "
+        f"{hits / max(1, hits + misses):.4f} ({hits} hits, {misses} misses "
+        f"in the traffic; the service's since it started "
+        f"{rep.cache_hit_rate:.4f}); availability gap "
+        f"{rep.availability_gap}; fleet by_backend {st.by_backend} (shard "
+        f"answers, all phases), {device} during the traffic on device; "
+        f"shard delta_refreshes "
+        f"{[e.stats().delta_refreshes - r for e, r in zips]} during it, "
+        f"each {np.median(spent) * 1e3 if spent else 0:.3f} ms (median; "
+        f"{sum(spent):.3f} s in all) ({card})")
+    if rep.availability_gap > 0:
+        fail(f"the traffic left {rep.availability_gap} requests unanswered")
+    if device == 0:
+        fail("no traffic batch was served by the device backend")
+    fleet_round(fleet, svc, draw(), "after the traffic")
+    launches = fq_kernel.launches
+    say(f"[fleet] fused_query launches in the phase: {launches} (every "
+        f"shard's device batches: 3 rounds and the traffic); every round's "
+        f"answers equal the fleet host backend's (conjunctive exact, ranked "
+        f"rtol {HOST_RTOL}); the phase took "
+        f"{time.perf_counter() - t_phase:.3f} s ({card})")
+    svc.close()
+    fleet.close()
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
+# phase 5: Path A, the variable-growth kernel backend at full scale
 # --------------------------------------------------------------------------
 
 
@@ -1995,9 +2263,11 @@ def time_round(eng, groups, label: str) -> dict:
 def triangle_path(n_docs: int, const_index: tuple[float, int]) -> dict:
     """Path A: the first ``n_docs`` documents of the WSJ1-like stream into
     a Triangle-growth engine on the card, one query round at 90 % through
-    the service, unforced and forced to the kernel backend.
-    ``const_index`` is the Const path's (bytes per posting, documents),
-    compared at the same document count."""
+    the service, unforced and forced to the kernel backend (timed), then
+    at the end 8 deletes and a second round, untimed: ``intersect`` and
+    ``topk_score`` with tombstones.  ``const_index`` is the Const path's
+    (bytes per posting, documents), compared at the same document
+    count."""
     import torch
     from repro_torch.data.corpus import WSJ1_LIKE, SyntheticCorpus, term_table
     from repro_torch.engine import Engine
@@ -2019,12 +2289,13 @@ def triangle_path(n_docs: int, const_index: tuple[float, int]) -> dict:
     batch: list[list[str]] = []
     t_gen = time.perf_counter()
 
-    def query_round(label):
+    def query_round(label, timed_too=True):
         groups = [zipf_queries(rng, names, probs, eng, 32, mode)
                   for mode in MODES]
         for k, v in serve_round(eng, svc, groups, label).items():
             launches[k] += v
-        timed.update(time_round(eng, groups, label))
+        if timed_too:
+            timed.update(time_round(eng, groups, label))
 
     for ids in SyntheticCorpus(spec).doc_term_ids():
         batch.append([names[i] for i in ids.tolist()])
@@ -2037,6 +2308,12 @@ def triangle_path(n_docs: int, const_index: tuple[float, int]) -> dict:
             if eng.index.num_docs == round_at:
                 query_round(f"round 1 ({round_at} docs)")
     wall_s = time.perf_counter() - t_gen
+    while len(eng.index.tombstones) < 8:
+        d = int(rng.integers(1, eng.index.num_docs + 1))
+        if d not in eng.index.tombstones:
+            svc.delete(d)
+    query_round(f"round 2 ({eng.index.num_docs} docs, 8 deletes)",
+                timed_too=False)
     st = eng.stats()
     say(f"[ingest] triangle: {st.num_docs} docs, {st.num_postings} postings "
         f"in {st.ingest_time_s:.3f} s of add_documents ({wall_s:.3f} s with "
@@ -2116,6 +2393,11 @@ def main() -> int:
                          "--docs documents and run the tier phase on it "
                          "(freeze, serve, delta, snapshot, restore), and "
                          "stop: no other path is driven")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="build fused_query and run the fleet phase alone "
+                         "(a two-shard fleet behind the pipelined service: "
+                         "ingest, freeze, deletes, query rounds, traffic), "
+                         "and stop: no other path is driven")
     ap.add_argument("--fused-only", type=Path, metavar="PT",
                     help="time the fused kernel alone on the main path's "
                          "prepared batches, read from PT (written there "
@@ -2150,6 +2432,14 @@ def main() -> int:
         say(f"[card] {card_line()}")
         say("[done] --tier-only: no other path was driven")
         return 0
+    if args.fleet_only:
+        build.build_all(["fused_query"])
+        fleet_phase(None)
+        if "jax" in sys.modules:
+            fail("jax was imported")
+        say(f"[card] {card_line()}")
+        say("[done] --fleet-only: no other path was driven")
+        return 0
     if args.fused_only:
         build.build_all(["fused_query"])
         for line in build.build_log("fused_query").splitlines():
@@ -2177,7 +2467,9 @@ def main() -> int:
         say("[done] --kernels: no path was driven")
         return 0
     row = main_path(args.docs)
-    gc.collect()       # the Const engine's host index goes before Path A's
+    gc.collect()       # the Const engine's host index goes before the fleet
+    fleet = fleet_phase(row)
+    gc.collect()       # and the fleet's before Path A's
     tri = triangle_path(TRIANGLE_DOCS, row["index"])
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -2185,6 +2477,7 @@ def main() -> int:
     rows = {
         "fused_query": dict(row, max_abs_err=max(small_err,
                                                  row["max_abs_err"]),
+                            fleet_phase_launches=fleet["launches"],
                             parity=f"kernel == plain version (rtol "
                                    f"{PARITY_RTOL}), rerun bit-identical"),
         "intersect": dict(tri["intersect"], bound_by="bytes", parity=exact),
@@ -2212,7 +2505,8 @@ def main() -> int:
             entry[key] = r[key]
         for key in ("retrieval_cand", "off_path", "nonempty_rows",
                     "bound_ms_every_row", "decode_share", "floor_ms",
-                    "path_query", "tier_phase_launches"):
+                    "path_query", "tier_phase_launches",
+                    "fleet_phase_launches"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

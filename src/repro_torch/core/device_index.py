@@ -308,6 +308,141 @@ def build_delta_image(index: DynamicIndex, vocab: list[bytes],
         term_dnum0=_i32(dnum0, device), num_docs=num_docs, F=index.F)
 
 
+class DeltaBuilder:
+    """:func:`build_delta_image`, kept current from one refresh to the next.
+
+    After a small ingest only the chains of the terms it touched have
+    moved, yet ``build_delta_image`` walks the chain of every term changed
+    since the freeze.  The builder keeps the packed delta chains (each
+    term's block slots, oldest first, terms in ascending id as
+    ``build_delta_image`` packs them) and each term's fixed bases between
+    builds, walks on only the chains of terms whose append count moved
+    since the last build, inserts their new slots in one numpy call, and
+    gathers every delta block afresh from the store (a tail block fills in
+    place): the two give the same image for the same index, vocabulary and
+    counts.  One builder serves one (index, baseline) pair; a freeze or a
+    collation starts a new one.  Call it only while no ingest runs (the
+    refresh's thread, after the ingest drain).
+    """
+
+    _PER_TERM = ("_ft", "_head", "_last", "_len", "_skip", "_nx", "_lastd0",
+                 "_dnum0")
+
+    def __init__(self, index: DynamicIndex, baseline: DeltaBaseline):
+        if not index.store.const_mode:
+            raise ValueError("delta images require Const blocks")
+        if index.word_level:
+            raise ValueError("delta images are doc-level")
+        self.index = index
+        self.baseline = baseline
+        # per term id: the append count at the last build, the head slot,
+        # the chain's last slot and length in the delta (0: not in it), and
+        # the bases build_delta_image derives
+        for name in self._PER_TERM:
+            setattr(self, name, np.zeros(0, np.int64))
+        self._slots = np.zeros(0, np.int64)   # the packed chains
+
+    def _grow(self, V: int) -> None:
+        n = len(self._ft)
+        if n < V:
+            for name in self._PER_TERM:
+                setattr(self, name, np.concatenate(
+                    [getattr(self, name), np.zeros(V - n, np.int64)]))
+
+    def _start(self, i: int, h_ptr: int) -> int:
+        """A term's first delta slot; records its fixed bases."""
+        base, store = self.baseline, self.index.store
+        hb = h_ptr * store.B
+        if i < base.vocab_size and base.ft[i] > 0:
+            first = int(base.tail_slot[i])
+            self._skip[i] = int(base.nx[i])
+            self._lastd0[i] = int(base.lastd[i])
+            self._dnum0[i] = int(base.dnum[i])
+        else:
+            # born after the freeze: the delta is its whole chain
+            first = h_ptr
+            skip = store.head_fixed + int(store.I[hb + store.head_fixed - 1])
+            self._skip[i] = skip
+            self._lastd0[i] = 0
+            (g, _), _ = dvbyte_decode_from(store.I, hb + skip, store.F)
+            self._dnum0[i] = g
+        self._head[i] = h_ptr
+        return first
+
+    def build(self, vocab: list[bytes], store_ft: np.ndarray, *,
+              num_docs: int, pad_vocab: int | None = None,
+              device=None) -> DeltaIndex:
+        """The delta image now; ``store_ft`` is the APPEND-ONLY per-term
+        posting count (never live, deletion-decremented counts)."""
+        device = resolve_device(device)
+        index, base = self.index, self.baseline
+        store = index.store
+        B = store.B
+        V = len(vocab)
+        Vp = max(V, pad_vocab or 0)
+        Vf = base.vocab_size
+        store_ft = np.asarray(store_ft, np.int64)[:V]
+        self._grow(V)
+        grown: list[int] = []                 # term ids, ascending
+        added: list[list[int]] = []           # their new slots, in order
+        for i in np.flatnonzero(store_ft != self._ft[:V]).tolist():
+            new = []
+            if self._len[i]:
+                p = int(self._last[i])
+            else:
+                if i < Vf and store_ft[i] == base.ft[i]:
+                    continue            # no postings since the freeze
+                h_ptr = index.lookup(vocab[i])
+                if h_ptr is None:
+                    continue
+                p = self._start(i, h_ptr)
+                new.append(p)
+            hb = int(self._head[i]) * B
+            # walk on from the last slot seen to the current tail
+            t_ptr = store.get_tptr(hb)
+            while p != t_ptr:
+                p = store._get_u32(p * B + _OFF_NPTR)
+                new.append(p)
+            self._nx[i] = store.get_nx(hb)
+            if new:
+                self._last[i] = p
+                grown.append(i)
+                added.append(new)
+        self._ft[:V] = store_ft
+        lens = self._len
+        if grown:
+            g = np.asarray(grown, np.int64)
+            cnt = np.fromiter(map(len, added), np.int64, count=len(added))
+            end = np.cumsum(lens)[g]          # where each chain ends now
+            self._slots = np.insert(
+                self._slots, np.repeat(end, cnt),
+                np.fromiter((p for a in added for p in a), np.int64,
+                            count=int(cnt.sum())))
+            lens[g] += cnt
+        nblk = np.zeros(Vp, np.int32)
+        nblk[:V] = lens[:V]
+        slot = np.zeros(Vp, np.int32)
+        slot[:V] = np.where(lens[:V] > 0, np.cumsum(lens[:V]) - lens[:V], 0)
+        fts = np.zeros(Vp, np.int32)
+        fts[:V] = store_ft
+        per_term = []
+        for src in (self._skip, self._nx, self._lastd0, self._dnum0):
+            out = np.zeros(Vp, np.int32)
+            out[:V] = src[:V]
+            per_term.append(out)
+        skip, nxs, lastd0, dnum0 = per_term
+        if len(self._slots):
+            blocks = store.I[:store.nblocks * B].reshape(-1, B)[self._slots]
+        else:
+            blocks = np.zeros((1, B), np.uint8)
+        return DeltaIndex(
+            blocks=torch.from_numpy(blocks).to(device),
+            term_slot=_i32(slot, device), term_nblk=_i32(nblk, device),
+            term_skip=_i32(skip, device), term_nx=_i32(nxs, device),
+            term_ft=_i32(fts, device), term_lastd0=_i32(lastd0, device),
+            term_dnum0=_i32(dnum0, device), num_docs=num_docs, F=index.F)
+
+
 def with_global_stats(image: DeviceIndex, term_ft: np.ndarray,
                       num_docs: int, pad_vocab: int | None = None
                       ) -> DeviceIndex:

@@ -1,8 +1,10 @@
 """Engine snapshot/restore: crash-atomic persistence of the serving engine.
 
-An :class:`~repro_torch.engine.Engine` can be snapshotted to disk and
-restored in a fresh process answering every query mode byte-identically
-(docids, score doubles, tie order) to the never-restarted original.  The
+An :class:`~repro_torch.engine.Engine` (or a whole
+:class:`~repro_torch.core.sharded_index.ShardedEngine` fleet) can be
+snapshotted to disk and restored in a fresh process answering every query
+mode byte-identically (docids, score doubles, tie order) to the
+never-restarted original.  The
 format is the JAX package's (``FORMAT_VERSION`` 1, file for file), so a
 snapshot written by either package restores in the other.  What is
 persisted is exactly the state of record:
@@ -310,7 +312,7 @@ def _gc(root: str, keep: int) -> None:
 
 
 def _publish(root: str, keep: int, write_payload) -> str:
-    """The atomic-publish skeleton of a snapshot:
+    """The atomic-publish skeleton shared by engine and fleet snapshots:
     sweep orphans, stage everything under ``.tmp-<seq>``, write the
     manifest LAST, then one ``os.rename``."""
     os.makedirs(root, exist_ok=True)
@@ -378,6 +380,84 @@ def restore_engine(path_or_root: str, **engine_kwargs):
     return _restore_engine_dir(snap, man, engine_kwargs)
 
 
+# --------------------------------------------------------------------------
+# public API: sharded fleet
+# --------------------------------------------------------------------------
+
+
+def save_sharded(sharded, root: str, *, keep: int = 3) -> str:
+    """Snapshot a :class:`~repro_torch.core.sharded_index.ShardedEngine`:
+    one sub-directory per shard (each the same layout as a single-engine
+    snapshot) plus the fleet state — the published ``_FleetCounts`` triple
+    and the fleet-wide term document frequencies — all under ONE atomic
+    rename, so the fleet can never be restored torn across shards."""
+    counts = sharded._counts  # one load of the published snapshot
+
+    def payload(tmp: str) -> dict:
+        shards = []
+        for s, eng in enumerate(sharded.engines):
+            sd = os.path.join(tmp, f"shard-{s}")
+            os.makedirs(sd)
+            shards.append(_write_engine_state(eng, sd))
+        terms = sorted(sharded._ft)
+        ft_blob, ft_off = _blob(terms)
+        crcs: dict[str, int] = {}
+        _save_array(tmp, "ft_blob", ft_blob, crcs)
+        _save_array(tmp, "ft_off", ft_off, crcs)
+        _save_array(tmp, "ft_df",
+                    np.asarray([sharded._ft[t] for t in terms], np.int64),
+                    crcs)
+        return {
+            "format": FORMAT_VERSION, "kind": "sharded",
+            "num_shards": sharded.num_shards,
+            "max_in_flight": sharded.coordinator.max_in_flight,
+            "counts": {"version": counts.version,
+                       "num_docs": counts.num_docs,
+                       "total_tokens": counts.total_tokens,
+                       "deleted_docs": counts.deleted_docs},
+            "shards": shards,
+            "files": crcs,
+        }
+
+    return _publish(root, keep, payload)
+
+
+def restore_sharded(path_or_root: str, *, parallel: bool = True,
+                    max_in_flight: int | None = None, **engine_kwargs):
+    """Rebuild a ShardedEngine fleet from a snapshot.  Shard engines are
+    restored in shard order through the normal ``engine_factory`` seam, so
+    the fleet wiring (stats provider, freeze coordinator registration,
+    fan-out pool) is exactly the constructor's."""
+    from .sharded_index import ShardedEngine, _FleetCounts
+
+    snap = _resolve(path_or_root)
+    man = _read_manifest(snap, "sharded")
+    num_shards = int(man["num_shards"])
+    shard_iter = iter(range(num_shards))
+
+    def factory():
+        s = next(shard_iter)
+        return _restore_engine_dir(os.path.join(snap, f"shard-{s}"),
+                                   man["shards"][s], engine_kwargs)
+
+    fleet = ShardedEngine(
+        num_shards=num_shards, engine_factory=factory,
+        max_in_flight=(max_in_flight if max_in_flight is not None
+                       else int(man["max_in_flight"])),
+        parallel=parallel)
+    c = man["counts"]
+    fleet._counts = _FleetCounts(int(c["version"]), int(c["num_docs"]),
+                                 int(c["total_tokens"]),
+                                 int(c.get("deleted_docs", 0)))
+    crcs = man["files"]
+    terms = _unblob(_load_array(snap, "ft_blob", crcs),
+                    _load_array(snap, "ft_off", crcs))
+    df = _load_array(snap, "ft_df", crcs)
+    fleet._ft = {t: int(df[i]) for i, t in enumerate(terms)}
+    return fleet
+
+
 __all__ = ["CRASH_POINTS", "SnapshotCrash", "SnapshotCorrupt",
-           "save_engine", "restore_engine", "list_snapshots",
-           "latest_snapshot", "sweep_tmp", "FORMAT_VERSION"]
+           "save_engine", "restore_engine", "save_sharded",
+           "restore_sharded", "list_snapshots", "latest_snapshot",
+           "sweep_tmp", "FORMAT_VERSION"]

@@ -10,7 +10,10 @@ stop-the-world and break the paper's immediate-access property.  The
     the per-term statistics are rebased to the live collection at each
     refresh (``with_global_stats``);
   * a **delta image**: a :class:`~repro_torch.core.device_index.DeltaIndex`
-    of only the blocks appended since the freeze (cost ∝ delta);
+    of only the blocks appended since the freeze, kept by a
+    :class:`~repro_torch.core.device_index.DeltaBuilder` that walks on only
+    the chains an ingest moved since the last refresh (host cost ∝ the
+    terms touched, plus one gather of the delta's blocks);
 
 and :class:`DeviceBackend` answers each (mode, k) group of queries with ONE
 launch of the fused decode→score→top-k op (``kernels/fused_query``) over
@@ -26,8 +29,8 @@ new postings.
 **Delta-compaction policy** (fragmentation threshold): a refresh whose
 *projected* delta — new blocks since the freeze plus one copied tail block
 per changed term — exceeds both an absolute floor and a fraction of the
-store falls back to a full collation first, since past that point the
-python chain walk of ``build_delta_image`` costs more than collating.
+store falls back to a full collation first, since past that point a
+collation costs less than carrying the delta.
 
 Capacities are bucketed (vocabulary and docid capacity round up to powers
 of two), so the frozen image's metadata is re-padded only when a bucket
@@ -40,8 +43,8 @@ import numpy as np
 import torch
 
 from ..core.device_index import (
+    DeltaBuilder,
     DeviceIndex,
-    build_delta_image,
     build_device_image,
     capture_delta_baseline,
     query_step,
@@ -73,6 +76,7 @@ class ResidentImageManager:
         self._frozen_raw: DeviceIndex | None = None   # as built at freeze
         self._frozen_nblk: np.ndarray | None = None   # host copy, per term
         self._baseline = None                          # DeltaBaseline
+        self._builder = None                           # DeltaBuilder
         self._frozen = None             # stats-rebased frozen image
         self._delta = None              # DeltaIndex
         self._doclens = None            # (cap+1,) f32 on the device
@@ -108,6 +112,7 @@ class ResidentImageManager:
         self._frozen_mb = _pow2(int(self._frozen_nblk.max())
                                 if len(self._frozen_nblk) else 1)
         self._baseline = capture_delta_baseline(eng.index, eng.vocab)
+        self._builder = DeltaBuilder(eng.index, self._baseline)
         self._frozen = None        # stale metadata: rebuild from _frozen_raw
         self._synced_version = -1  # force a refresh before the next query
         self.epoch += 1
@@ -156,17 +161,22 @@ class ResidentImageManager:
             self._frozen_raw = _empty_image(eng)
             self._frozen_nblk = np.zeros(0, np.int32)
             self._baseline = capture_delta_baseline(eng.index, [])
+            self._builder = DeltaBuilder(eng.index, self._baseline)
         appended = np.asarray(eng._appended_fts, dtype=np.int64)
         self._maybe_compact(appended)
         N = eng.index.num_docs
         doc_cap = max(self._doc_cap, _pow2(N + 1))
         vocab_cap = max(self._vocab_cap, _pow2(len(eng.vocab)))
-        # scoring statistics: with tombstones outstanding they are the
-        # engine's live counters — both images must weight their postings
-        # with the SAME f_t (exact merge)
+        # scoring statistics: in a fleet, N, f_t and avgdl are the
+        # COLLECTION's (the fleet's stats provider); with tombstones
+        # outstanding they are the engine's live counters — either way
+        # both images must weight their postings with the SAME f_t (exact
+        # merge).  Change detection above and below reads ``appended``
+        # alone: the fleet's f_t moves with every fleet ingest and delete,
+        # and the live local f_t with every delete (a term whose deletes
+        # and adds cancel would look unchanged)
         stats = eng.ranking_stats()
-        fts = (stats.fts_for(eng.vocab) if stats is not None
-               else np.asarray(eng._fts, dtype=np.int64))
+        fts = eng.global_fts()
         if (self._frozen is None or doc_cap != self._doc_cap
                 or vocab_cap != self._vocab_cap):
             self._frozen = with_global_stats(self._frozen_raw, fts, doc_cap,
@@ -174,11 +184,11 @@ class ResidentImageManager:
         else:
             self._frozen = with_global_stats(self._frozen, fts, doc_cap)
         self._doc_cap, self._vocab_cap = doc_cap, vocab_cap
-        delta = build_delta_image(eng.index, eng.vocab, self._baseline,
-                                  num_docs=doc_cap, pad_vocab=vocab_cap,
-                                  store_ft=appended, device=dev)
+        delta = self._builder.build(eng.vocab, appended, num_docs=doc_cap,
+                                    pad_vocab=vocab_cap, device=dev)
         if stats is not None:
-            # deletion-aware mode: the live f_t replaces the baked store f_t
+            # fleet or deletion-aware mode: the collection-wide / live f_t
+            # replaces the baked store f_t
             ftp = np.zeros(int(delta.term_ft.shape[0]), np.int32)
             ftp[:min(len(fts), len(ftp))] = fts[:len(ftp)]
             delta.term_ft = torch.from_numpy(ftp).to(dev)
@@ -207,6 +217,8 @@ class ResidentImageManager:
             self._alive = torch.from_numpy(bits.view(np.int32).copy()).to(dev)
         else:
             self._alive = None
+        # the fleet's live N reaches only the score (idf, avgdl): the docid
+        # bounds above are this engine's own ``doc_cap``
         if stats is None:
             self._n_stat, self._avg_stat = N, None
         else:
@@ -286,6 +298,10 @@ def serve_groups(resident: ResidentImageManager, queries: list[Query],
     if any(q.mode in POSITIONAL_MODES for q in queries):
         raise UnsupportedQueryError(
             "the device images serve no positional query mode")
+    # the one place the images refresh: on the thread that executes
+    # queries (a service's flush, after its ingest pipeline's drain, or a
+    # fleet's fan-out pool inside that flush); ingest writer threads touch
+    # host state only
     resident.refresh()
     out: list[QueryResult | None] = [None] * len(queries)
     groups: dict[tuple[str, int], list[int]] = {}

@@ -100,6 +100,12 @@ class Engine:
         self.delta_compact_frac = delta_compact_frac
         self.delta_compact_min_blocks = delta_compact_min_blocks
         self.version = 0                  # bumps per ingested/deleted doc
+        # when this engine is one shard of a document-partitioned fleet,
+        # the fan-out layer installs a callable returning the fleet-wide
+        # CollectionStats — every ranked scorer and device-image refresh
+        # then rebases (N, f_t, avgdl) to the full collection, making
+        # shard results merge-exact.  None = this engine IS the collection.
+        self.stats_provider = None
         self.vocab: list[bytes] = []      # tid -> term bytes
         self._tid: dict[bytes, int] = {}
         # tid -> LIVE f_t (doc-level: document frequency; word-level:
@@ -218,10 +224,14 @@ class Engine:
 
     def ranking_stats(self):
         """The :class:`~repro_torch.core.query.CollectionStats` to score
-        with, or None when this engine's own statistics are exact (no
-        tombstones).  With tombstones outstanding, deletion-aware
-        statistics are synthesized from the live counters: N minus the
-        dead, avgdl over live tokens, per-term LIVE document frequency."""
+        with, or None when this engine's own statistics are exact (a
+        single engine without tombstones).  Under a fleet provider they
+        are the fleet's.  Otherwise, with tombstones outstanding,
+        deletion-aware statistics are synthesized from the live counters:
+        N minus the dead, avgdl over live tokens, per-term LIVE document
+        frequency."""
+        if self.stats_provider is not None:
+            return self.stats_provider()
         dead = self.index.tombstones
         if not dead:
             return None
@@ -230,6 +240,16 @@ class Engine:
                if live_n else 0.0)
         dfs = self._doc_dfs if self.index.word_level else self._fts
         return CollectionStats(live_n, avg, _LiveFtMap(self._tid, dfs))
+
+    def global_fts(self) -> np.ndarray:
+        """Current scoring f_t per term id: under a fleet stats provider
+        the COLLECTION-wide document frequency per local term id, else the
+        live local counts.  Scoring only: the delta build's change
+        detection reads the append-only ``_appended_fts``, never this."""
+        stats = self.ranking_stats()
+        if stats is not None:
+            return stats.fts_for(self.vocab)
+        return np.asarray(self._fts, dtype=np.int64)
 
     def doclens_array(self) -> np.ndarray:
         return np.asarray(self._doclens, dtype=np.float64)

@@ -114,5 +114,8 @@ class EngineStats:
     #                             threshold and collated instead
     resident_uploads: int = 0   # full device-image uploads (1 per freeze)
     freezes: int = 0          # static-tier freezes completed (lifecycle)
-    tier_epoch: int = 0       # epoch of the published static tier
+    tier_epoch: int = 0       # epoch of the published static tier (for a
+    #                           sharded fleet: the composite epoch — the
+    #                           sum over shards, bumping on any tier swap)
+    num_shards: int = 0       # 0 = single engine; >0 = sharded composite
     by_backend: dict = field(default_factory=dict)

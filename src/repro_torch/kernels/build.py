@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
@@ -29,7 +30,12 @@ SOURCES = {
                  "retrieval_dot")
 }
 
+#: kernel name -> its loaded library, written under ``_LOAD_LOCK`` only
 _LOADED: dict[str, ctypes.CDLL] = {}
+#: one first load at a time: two threads that launch a kernel for the first
+#: time together (a fleet's fan-out pool) must not both run ``nvcc`` into
+#: one library path and both open it
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -103,10 +109,22 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+def load(name: str, setup=None) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed.
+
+    Thread-safe: the first callers wait on one lock while one of them
+    builds and opens the library and runs ``setup(lib)`` on it (declaring
+    ``argtypes``), so no caller sees a library whose functions are not yet
+    declared."""
     lib = _LOADED.get(name)
-    if lib is None:
-        path = build_all([name])[name]
-        lib = _LOADED[name] = ctypes.CDLL(str(path))
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            path = build_all([name])[name]
+            lib = ctypes.CDLL(str(path))
+            if setup is not None:
+                setup(lib)
+            _LOADED[name] = lib
     return lib

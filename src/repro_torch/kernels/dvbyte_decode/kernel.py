@@ -26,13 +26,14 @@ launches = 0
 MAX_B = 64
 
 
+def _declare(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dv_launch.argtypes = [p, p, p, i, i, i, p, p, p, p]
+    lib.dv_launch.restype = ctypes.c_int
+
+
 def _lib():
-    fn = build.load("dvbyte_decode").dv_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, p, p, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+    return build.load("dvbyte_decode", _declare).dv_launch
 
 
 def dvbyte_decode_kernel(blocks: torch.Tensor, start: torch.Tensor,

@@ -38,15 +38,15 @@ _PART_DTYPES = (torch.uint8, torch.int32, torch.int32, torch.int32,
                 torch.int32, torch.int32, torch.float32)
 
 
+def _declare(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fq_launch.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p, i, p, p,
+                              p, p, p, p, p, p, p]
+    lib.fq_launch.restype = ctypes.c_int
+
+
 def _lib():
-    lib = build.load("fused_query")
-    fn = lib.fq_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p, i, p, p, p, p,
-                       p, p, p, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+    return build.load("fused_query", _declare).fq_launch
 
 
 def ranges_for(Q: int, cap: int, n_sm: int) -> tuple[int, int]:

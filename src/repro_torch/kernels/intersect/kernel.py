@@ -26,15 +26,16 @@ from ..cuda_args import check, raise_on_error, require_cuda
 launches = 0
 
 
+def _declare(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ix_launch.argtypes = [p, i, p, p, i, i, p, p]
+    lib.ix_launch.restype = ctypes.c_int
+    lib.ix_empty_launch.argtypes = [i, p]
+    lib.ix_empty_launch.restype = ctypes.c_int
+
+
 def _lib():
-    lib = build.load("intersect")
-    if lib.ix_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ix_launch.argtypes = [p, i, p, p, i, i, p, p]
-        lib.ix_launch.restype = ctypes.c_int
-        lib.ix_empty_launch.argtypes = [i, p]
-        lib.ix_empty_launch.restype = ctypes.c_int
-    return lib
+    return build.load("intersect", _declare)
 
 
 def intersect_kernel(a: torch.Tensor, b: torch.Tensor,

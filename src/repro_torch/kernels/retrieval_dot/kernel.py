@@ -23,13 +23,14 @@ from ..cuda_args import check, raise_on_error, require_cuda
 launches = 0
 
 
+def _declare(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rd_launch.argtypes = [p, i, p, ctypes.c_longlong, i, p, p]
+    lib.rd_launch.restype = ctypes.c_int
+
+
 def _lib():
-    fn = build.load("retrieval_dot").rd_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, ctypes.c_longlong, i, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+    return build.load("retrieval_dot", _declare).rd_launch
 
 
 def retrieval_dot_kernel(q: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:

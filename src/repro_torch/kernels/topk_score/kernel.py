@@ -26,13 +26,14 @@ launches = 0
 TILE = 512
 
 
+def _declare(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ts_launch.argtypes = [p, p, p, i, p, i, p]
+    lib.ts_launch.restype = ctypes.c_int
+
+
 def _lib():
-    fn = build.load("topk_score").ts_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, p, i, p]
-        fn.restype = ctypes.c_int
-    return fn
+    return build.load("topk_score", _declare).ts_launch
 
 
 def score_kernel(docids: torch.Tensor, weights: torch.Tensor, n_docs: int,

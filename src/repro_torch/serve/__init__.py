@@ -1,3 +1,16 @@
-"""Serving front door."""
+"""Serving front door: request batching, the pipelined write path, and
+the traffic harness."""
 
 from .query_service import QueryService, Ticket  # noqa: F401
+from .traffic import (  # noqa: F401
+    FakeClock,
+    SLOSpec,
+    TrafficReport,
+    run_traffic,
+)
+from .workload import (  # noqa: F401
+    Event,
+    WorkloadSpec,
+    build_query_pool,
+    generate_schedule,
+)

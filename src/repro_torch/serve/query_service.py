@@ -7,9 +7,15 @@ adjacent queries so the engine planner can route them to the batched device
 path (``device_min_batch``): the classic serving trade of a tiny queueing
 delay for much higher throughput.
 
-Synchronous core, deliberately: one writer per index is the paper's (and
+Synchronous core, deliberately: one writer per shard is the paper's (and
 Asadi & Lin's) concurrency model, and a thread-safe wrapper can wrap
-``submit``/``flush`` without touching engine internals.
+``submit``/``flush`` without touching engine internals.  With
+``pipelined=True`` the write path moves onto per-shard writer queues
+(:class:`~repro_torch.serve.ingest_pipeline.IngestPipeline`): ``ingest`` /
+``ingest_batch`` enqueue and return immediately, and the immediate-access
+barrier moves to ``flush`` — which drains the pipeline before executing,
+so a query still sees every document submitted before it.  The front door
+itself stays a single thread; per-shard appends run in parallel behind it.
 
 **Result cache**: repeated queries between ingests are answered from a small
 LRU keyed by ``(engine.version, static-tier epoch, query)``: every ingest or
@@ -43,10 +49,12 @@ class Ticket:
 
 
 class QueryService:
-    """Batching executor over an :class:`~repro_torch.engine.Engine` (or
-    anything with ``add_document``/``execute_many``)."""
+    """Batching executor over an :class:`~repro_torch.engine.Engine` (or a
+    :class:`~repro_torch.core.sharded_index.ShardedEngine` — anything with
+    ``add_document``/``execute_many``)."""
 
-    def __init__(self, engine, max_batch: int = 32, cache_size: int = 256):
+    def __init__(self, engine, max_batch: int = 32, cache_size: int = 256,
+                 pipelined: bool = False, pipeline_queue: int = 8):
         self.engine = engine
         self.max_batch = max_batch
         self._pending: list[Ticket] = []                # writer_only
@@ -57,6 +65,17 @@ class QueryService:
             = OrderedDict()                             # writer_only
         self.cache_hits = 0
         self.cache_misses = 0
+        self.pipeline = None
+        if pipelined:
+            from .ingest_pipeline import IngestPipeline
+            self.pipeline = IngestPipeline(engine, max_queue=pipeline_queue)
+
+    def close(self) -> None:
+        """Drain and stop the ingest pipeline, if one is attached.  The
+        service remains usable afterwards on the synchronous write path."""
+        if self.pipeline is not None:
+            self.pipeline.close()
+            self.pipeline = None
 
     # -- result cache ----------------------------------------------------
 
@@ -65,7 +84,11 @@ class QueryService:
         version counter or caching is off.  The epoch is the lifecycle's
         published tier epoch (0 without tiering): a background freeze
         swaps the tier without an ingest, so the version alone would keep
-        serving entries computed against the previous tier."""
+        serving entries computed against the previous tier.  Over a
+        :class:`~repro_torch.core.sharded_index.ShardedEngine` the version
+        is the fleet's and the lifecycle is its
+        :class:`~repro_torch.core.lifecycle.FreezeCoordinator`, whose
+        composite ``epoch`` bumps whenever ANY shard swaps its tier."""
         if self.cache_size <= 0:
             return None
         version = getattr(self.engine, "version", None)
@@ -104,9 +127,14 @@ class QueryService:
     def ingest(self, terms) -> int:
         """Ingest one document.  Pending queries were submitted BEFORE this
         document, so they are NOT flushed first — immediate access only
-        requires a query to see documents ingested before its submission."""
+        requires a query to see documents ingested before its submission.
+        On the pipelined path this enqueues and returns the docid
+        immediately; visibility is settled by ``flush``'s drain."""
         t0 = time.perf_counter()
-        d = self.engine.add_document(terms)
+        if self.pipeline is not None:
+            d = self.pipeline.submit([terms])[0]
+        else:
+            d = self.engine.add_document(terms)
         self.ingest_latencies.append(time.perf_counter() - t0)
         return d
 
@@ -116,7 +144,10 @@ class QueryService:
         ``DynamicIndex.add_documents``).  Same flush semantics as
         ``ingest``: pending queries legally miss these documents."""
         t0 = time.perf_counter()
-        dids = self.engine.add_documents(docs)
+        if self.pipeline is not None:
+            dids = self.pipeline.submit(docs)
+        else:
+            dids = self.engine.add_documents(docs)
         self.ingest_latencies.append(time.perf_counter() - t0)
         return dids
 
@@ -161,7 +192,15 @@ class QueryService:
         the misses).  Duplicate queries within a flush execute once — the
         engine batch carries unique queries only (the fused device path
         then decodes each term chain set once per flush), and duplicates
-        are fanned back out as private result copies."""
+        are fanned back out as private result copies.
+
+        Pipelined mode: the in-flight ingest queues are DRAINED first —
+        every pending query was submitted after those documents, so this
+        one barrier honors every ticket's high-water mark at once, and
+        after it the writer threads are idle, making the cache keys below
+        (engine version) stable and the engine safe to fan out over."""
+        if self.pipeline is not None:
+            self.pipeline.drain()
         batch, self._pending = self._pending, []
         if not batch:
             return []

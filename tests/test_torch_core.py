@@ -116,7 +116,8 @@ def test_port_source_imports_neither_jax_nor_repro(path):
 @pytest.mark.parametrize("path", ["examples/hybrid_retrieval_torch.py",
                                   "chip_smoke.py",
                                   "tests/test_torch_gpu_kernels.py",
-                                  "tests/test_torch_gpu_term_kernels.py"])
+                                  "tests/test_torch_gpu_term_kernels.py",
+                                  "tests/test_torch_gpu_dense_kernels.py"])
 def test_port_scripts_import_neither_jax_nor_repro(path):
     """The port's scripts outside the package stand alone too, and so do
     the kernel tests that run on the card, where there is no jax."""

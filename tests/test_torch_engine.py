@@ -156,6 +156,55 @@ def test_c1_regression_device_path_keeps_post_freeze_postings():
                    _jax(jax_eng, terms, mode, "host"), mode, 1e-5)
 
 
+@pytest.mark.parametrize("batched", [False, True], ids=["docs", "batches"])
+def test_incremental_delta_equals_a_fresh_build(batched):
+    """The refresh's ``DeltaBuilder`` walks on only the chains moved since
+    its last build; after every refresh its image equals a fresh
+    ``build_delta_image`` of the same index, baseline and counts, tensor
+    for tensor: before any collation, across a freeze, with deletes (the
+    C1 stream, whose deletes and adds cancel), terms born after the
+    freeze, and a second freeze that starts a new builder."""
+    from repro_torch.core.device_index import build_delta_image
+    vocab, docs = _docs(seed=47, n=300, V=120)
+    eng = Engine(B=64, growth="const", device="cpu", delta_compact_frac=None)
+    res = eng.resident
+
+    def check():
+        res.refresh()
+        want = build_delta_image(
+            eng.index, eng.vocab, res._baseline, num_docs=res._doc_cap,
+            pad_vocab=res._vocab_cap,
+            store_ft=np.asarray(eng._appended_fts, np.int64), device="cpu")
+        got = res._delta
+        # term_ft left out: under deletes the refresh rebases it to live f_t
+        for f in ("blocks", "term_slot", "term_nblk", "term_skip", "term_nx",
+                  "term_lastd0", "term_dnum0"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert got.num_docs == want.num_docs
+
+    def feed(chunk):
+        if batched:
+            eng.add_documents(chunk)
+        else:
+            for d in chunk:
+                eng.add_document(d)
+
+    feed(docs[:40])
+    check()
+    for i in range(40, 300, 20):
+        feed(docs[i:i + 20])
+        if i == 100:
+            eng.collate_now()
+        if i == 220:
+            eng.collate_now()             # a new baseline, a new builder
+        if i > 100:
+            eng.delete_document(i - 50)
+        feed([["zz%d" % i, vocab[0]], [vocab[1]] * 3])   # born after
+        check()
+    _replay(eng, [("freeze",)] + list(C1_OPS))
+    check()
+
+
 def test_engine_defaults_to_the_card():
     if torch.cuda.is_available():
         assert Engine().device.type == "cuda"

@@ -10,7 +10,11 @@ retention and corruption checks behave as the reference's.  A restored
 port engine rebuilds its append-only per-term counts from the restored
 chains and its device images from the restored index, so after deletes
 its device answers equal its host answers (the regression for the
-reference's fault C1 across a restore).
+reference's fault C1 across a restore).  Fleet snapshots
+(``ShardedEngine.snapshot``/``restore``) write the same manifest and files
+in both packages, cross between them both ways, and restore to the answers
+of the fleet that was never restarted, on the host path and, with
+``device="cpu"``, on the device path.
 """
 
 import json
@@ -25,10 +29,12 @@ from hypothesis import given, settings, strategies as hst
 
 from repro.core import persist as jax_persist
 from repro.core.lifecycle import FreezePolicy as JaxPolicy
+from repro.core.sharded_index import ShardedEngine as JaxFleet
 from repro.engine import Engine as JaxEngine
 from repro.engine import Query as JaxQuery
 from repro_torch.core import persist
 from repro_torch.core.lifecycle import FreezePolicy
+from repro_torch.core.sharded_index import ShardedEngine
 from repro_torch.engine import Engine, Query
 
 VOCAB = [f"w{i}" for i in range(120)]
@@ -272,6 +278,169 @@ def test_restored_device_path_after_deletes_equals_host(tmp_path):
             np.testing.assert_allclose(dev.scores, host.scores, rtol=1e-5)
             assert dev.scores.tobytes() == orig.scores.tobytes(), q
     assert restored.resident.delta_blocks > 0
+
+
+# --------------------------------------------------------------------------
+# fleet snapshots (ShardedEngine), within the port and across the packages
+# --------------------------------------------------------------------------
+
+
+def fleet_results(fleet, word_level, backend=None):
+    """:func:`results_of` for a fleet of either package."""
+    q_cls = JaxQuery if isinstance(fleet, JaxFleet) else Query
+    out = []
+    for mode, terms, window in probes(word_level):
+        r = fleet.execute(q_cls(terms=terms, mode=mode, k=15, window=window,
+                                backend=backend))
+        out.append((r.docids.tobytes(),
+                    None if r.scores is None else r.scores.tobytes()))
+    return out
+
+
+def _feed_fleet(fleet, word_level, n_docs=80):
+    """Half the stream batched, a blocking freeze of every shard, the rest
+    one by one, then deletes on both sides of the freeze."""
+    docs = make_docs(n_docs)
+    half = n_docs // 2
+    fleet.add_documents(docs[:half])
+    for e in fleet.engines:
+        e.lifecycle.freeze(blocking=True)
+    for d in docs[half:]:
+        fleet.add_document(d)
+    for g in (3, 8, half + 5):
+        fleet.delete_document(g)
+    return fleet
+
+
+def port_fleet(word_level=False, **kw):
+    return _feed_fleet(ShardedEngine(
+        num_shards=3, B=64, word_level=word_level, device="cpu",
+        tier_policy=FreezePolicy(every_docs=10 ** 6, background=False),
+        **kw), word_level)
+
+
+def jax_fleet(word_level=False):
+    return _feed_fleet(JaxFleet(
+        num_shards=3, B=64, word_level=word_level,
+        tier_policy=JaxPolicy(every_docs=10 ** 6, background=False)),
+        word_level)
+
+
+def test_sharded_round_trip(tmp_path):
+    """The reference's fleet round trip on the port."""
+    fleet = ShardedEngine(num_shards=3, B=64, device="cpu",
+                          tier_policy=FreezePolicy(every_docs=25,
+                                                   background=False))
+    for d in make_docs(80):
+        fleet.add_document(d)
+    fleet.snapshot(str(tmp_path))
+    restored = ShardedEngine.restore(str(tmp_path), device="cpu")
+    try:
+        assert restored.num_shards == fleet.num_shards
+        assert restored._ft == fleet._ft
+        c0, c1 = fleet._counts, restored._counts
+        assert (c0.version, c0.num_docs, c0.total_tokens) == \
+            (c1.version, c1.num_docs, c1.total_tokens)
+        assert fleet_results(fleet, False) == fleet_results(restored, False)
+        restored.add_document(["w0", "w1"])
+        fleet.add_document(["w0", "w1"])
+        assert fleet_results(fleet, False) == fleet_results(restored, False)
+    finally:
+        restored.close()
+        fleet.close()
+
+
+def _walk(snap):
+    return sorted(os.path.relpath(os.path.join(d, f), snap)
+                  for d, _, fs in os.walk(snap) for f in fs)
+
+
+@pytest.mark.parametrize("word_level", [False, True], ids=["doc", "word"])
+def test_fleet_same_stream_same_snapshot_files(tmp_path, word_level):
+    """Both packages' fleets write the same manifest (every shard's
+    fragment and the fleet counters) and the same artifacts."""
+    snaps = [jax_fleet(word_level).snapshot(str(tmp_path / "jax")),
+             port_fleet(word_level).snapshot(str(tmp_path / "port"))]
+    mans = [json.load(open(os.path.join(s, persist.MANIFEST)))
+            for s in snaps]
+    for man in mans:            # the encodes' wall times, the one clock
+        for frag in man["shards"]:
+            assert frag["tier"].pop("encode_s") > 0
+    assert mans[0] == mans[1]
+    assert mans[0]["kind"] == "sharded" and mans[0]["num_shards"] == 3
+    assert _walk(snaps[0]) == _walk(snaps[1])
+    for f in _walk(snaps[0]):
+        if os.path.basename(f) == persist.MANIFEST:
+            continue
+        with open(os.path.join(snaps[0], f), "rb") as a, \
+                open(os.path.join(snaps[1], f), "rb") as b:
+            assert a.read() == b.read(), f
+
+
+@pytest.mark.parametrize("word_level", [False, True], ids=["doc", "word"])
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_fleet_snapshot_restores_across_packages(tmp_path, writer,
+                                                 word_level):
+    """A fleet snapshot written by either package restores in the other
+    (and in its own), and every restored fleet answers as the fleet that
+    was never restarted, on the host and the tiered backends; the restored
+    fleets keep merging exactly after one more document."""
+    port, ref = port_fleet(word_level), jax_fleet(word_level)
+    (port if writer == "port" else ref).snapshot(str(tmp_path))
+    restored = {
+        "port": ShardedEngine.restore(str(tmp_path), device="cpu"),
+        "jax": JaxFleet.restore(str(tmp_path))}
+    try:
+        for backend in ("host", "tiered"):
+            want = fleet_results(ref, word_level, backend)
+            assert fleet_results(port, word_level, backend) == want
+            for r in restored.values():
+                assert fleet_results(r, word_level, backend) == want
+        for f in (port, ref, *restored.values()):
+            f.add_document(["w0", "w99", "w0"])
+        want = fleet_results(ref, word_level, "host")
+        for r in restored.values():
+            assert fleet_results(r, word_level, "host") == want
+            assert r.coordinator.epoch == 3
+    finally:
+        for f in (port, ref, *restored.values()):
+            f.close()
+
+
+def test_restored_fleet_device_path_equals_host(tmp_path):
+    """A Const fleet on ``device="cpu"``: deletes after the freeze, a
+    snapshot, a restore, then the deleted documents' terms again.  The
+    restored fleet's device answers equal its host answers and the
+    never-restarted fleet's device answers bit for bit."""
+    fleet = port_fleet(delta_compact_frac=None)
+    fleet.snapshot(str(tmp_path))
+    restored = ShardedEngine.restore(str(tmp_path), device="cpu",
+                                     delta_compact_frac=None)
+    try:
+        for e, o in zip(restored.engines, fleet.engines):
+            assert e._appended_fts == o._appended_fts
+            assert e.resident.epoch == 1 and e.resident.delta_blocks == 0
+        docs = make_docs(80)
+        again = [docs[g - 1] for g in (3, 8, 45)]
+        for f in (fleet, restored):
+            f.add_documents(again)
+        for mode, terms, _ in probes(False):
+            q = Query(terms=terms, mode=mode, k=15, backend="device")
+            dev = restored.execute(q)
+            orig = fleet.execute(q)
+            host = restored.execute(Query(terms=terms, mode=mode, k=15,
+                                          backend="host"))
+            assert dev.backend == "device"
+            assert dev.docids.tobytes() == orig.docids.tobytes(), q
+            assert dev.docids.tolist() == host.docids.tolist(), q
+            if mode != "conjunctive":
+                assert dev.scores.tobytes() == orig.scores.tobytes(), q
+                np.testing.assert_allclose(dev.scores, host.scores,
+                                           rtol=1e-5)
+        assert any(e.resident.delta_blocks > 0 for e in restored.engines)
+    finally:
+        restored.close()
+        fleet.close()
 
 
 # --------------------------------------------------------------------------

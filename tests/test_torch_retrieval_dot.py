@@ -7,8 +7,9 @@ and through the port's ``candidate_scores`` on the CPU (its plain
 version), in float32 and bf16.  Tolerance rtol 1e-5, atol 2e-5: both sides
 accumulate in float32 in different orders (the Pallas kernel by 32-wide
 slices of d); the reference's own test allows 1e-4.  The CUDA kernel is
-held against the plain version by the ``gpu`` test, which runs only where
-there is a card.
+held against the plain version by the ``gpu`` tests in
+``tests/test_torch_gpu_dense_kernels.py``, which import no jax and run on
+the card.
 """
 
 import jax.numpy as jnp
@@ -94,40 +95,3 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def test_registered_outside_the_term_modes():
     spec = registry.get("retrieval_dot")
     assert spec.fn is ops.candidate_scores and spec.modes == ()
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("q,n,d", SHAPES + EDGE_SHAPES + [(1, 0, 256),
-                                                          (2, 333, 4100)])
-def test_cuda_kernel_matches_plain_version(q, n, d, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    _qv, _cv, tq, tc = (x if not isinstance(x, torch.Tensor) else x.cuda()
-                        for x in _inputs(q, n, d, dtype))
-    first = ops.candidate_scores(tq, tc)
-    second = ops.candidate_scores(tq, tc)
-    assert torch.equal(first, second)            # bit-identical rerun
-    np.testing.assert_allclose(first.cpu().numpy(),
-                               retrieval_dot_ref(tq, tc).cpu().numpy(),
-                               rtol=RTOL, atol=ATOL)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("offset", ["one row", "one float"])
-def test_cuda_kernel_matches_plain_version_at_an_offset_base(offset):
-    """C's base one row along (aligned) or one float along (unaligned: the
-    kernel's scalar loop)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    _qv, _cv, tq, tc = _inputs(8, 334, 256, "f32")
-    tq, flat = tq.cuda(), tc.cuda()
-    cand = flat[1:] if offset == "one row" else \
-        flat.flatten()[1:1 + 333 * 256].view(333, 256)
-    first = ops.candidate_scores(tq, cand)
-    assert torch.equal(first, ops.candidate_scores(tq, cand))
-    np.testing.assert_allclose(first.cpu().numpy(),
-                               retrieval_dot_ref(tq, cand).cpu().numpy(),
-                               rtol=RTOL, atol=ATOL)

@@ -13,7 +13,8 @@ The tile-edge cases put n_docs at the CUDA kernel's tile (``kernel.TILE``
 docids a block) and one off it, a segment inside one tile and an empty
 segment.  ``n_docs`` stays at most ~3,000, so the interpret mode stays
 quick.  The CUDA kernel is held against the plain version by the ``gpu``
-tests, which run only where there is a card.
+tests in ``tests/test_torch_gpu_dense_kernels.py``, which import no jax and
+run on the card.
 """
 
 import re
@@ -173,43 +174,3 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         score_kernel(torch.from_numpy(d), torch.from_numpy(w), 300,
                      torch.tensor(offsets, dtype=torch.int32))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("nseg,n_docs,with_zero", CASES)
-def test_cuda_kernel_matches_plain_version(nseg, n_docs, with_zero):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    from repro_torch.kernels.topk_score.kernel import score_kernel
-    d, w, offsets = _postings(nseg, n_docs, seed=nseg + n_docs,
-                              with_zero=with_zero)
-    dt, wt = torch.from_numpy(d).cuda(), torch.from_numpy(w).cuda()
-    off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
-    first = score_kernel(dt, wt, n_docs, off)
-    second = score_kernel(dt, wt, n_docs, off)
-    plain = score_ref(dt, wt, n_docs)
-    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
-    assert torch.equal(first.cpu().view(torch.int32),
-                       plain.cpu().view(torch.int32))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", EDGES + ["16 segments", "17 segments",
-                                          "40 segments"])
-def test_cuda_kernel_matches_plain_version_at_tile_edges(case):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    from repro_torch.kernels.topk_score.kernel import score_kernel
-    if case in EDGES:
-        d, w, offsets, n_docs = _edge_postings(case)
-    else:                       # a block stages 16 segments a pass
-        n_docs = 20_000
-        d, w, offsets = _postings(int(case.split()[0]), n_docs, seed=3)
-    dt, wt = torch.from_numpy(d).cuda(), torch.from_numpy(w).cuda()
-    off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
-    first = score_kernel(dt, wt, n_docs, off)
-    second = score_kernel(dt, wt, n_docs, off)
-    plain = score_ref(dt, wt, n_docs, offsets)
-    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
-    assert torch.equal(first.cpu().view(torch.int32),
-                       plain.cpu().view(torch.int32))
