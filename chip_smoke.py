@@ -12,6 +12,8 @@
     python3 chip_smoke.py --tier-only      # the Const ingest and the tier
                                            # phase alone
     python3 chip_smoke.py --fleet-only     # the fleet phase alone
+    python3 chip_smoke.py --mesh-only      # the mesh phase alone, with
+                                           # the ingest its layouts need
 
 Phases, each printing its own lines; the first failed check exits non-zero:
 
@@ -131,9 +133,32 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      each shard's refresh after an ingest, an engine batch's ms through
      the fleet beside the single engine's, and the traffic's latency
      percentiles and cache hit rate;
-  5. Path A, the variable-growth kernel backend: the first
-     ``TRIANGLE_DOCS`` documents of the WSJ1-like stream (cut to 36,864
-     for the tier and fleet phases) into ``Engine(B=64,
+  5. the mesh phase (:func:`mesh_phase`; also alone by ``--mesh-only``):
+     the port's device-mesh query step (``make_sharded_query_step``) on
+     two ranks, two processes spawned by ``repro_torch.launch.launch`` on
+     the one card, gloo collectives on the host (NCCL does not put two
+     ranks on one card); each rank loads its image from ``.npy`` files.
+     Layout M1, (data 2, model 1): the fleet's two shards, collated,
+     imaged on one vocabulary, ``term_ft`` rebased to the summed store
+     f_t.  Layout M2, (data 1, model 2): the Const path's frozen image
+     (saved at its freeze), replicated, each rank taking 128 of 256
+     queries.  Each layout runs query_rank (256 x 8, max_blocks 64, k 10)
+     in ``ranked_sparse`` and ``ranked`` and query_conj (256 x 4) in
+     ``conjunctive`` (the shapes of ``configs/paper_index.py``), Zipf-drawn,
+     held against ``sharded_query_plain`` with the plain decode on the same
+     images on the card (bitmaps and counts equal;
+     ``ranked_sparse`` docids equal and scores within rtol 1e-6;
+     ``ranked``, whose float atomics are not reproducible, within 1e-5
+     with near-tie swaps), and a batch of 32 per mode at a max_blocks
+     that covers its chains against the core's host oracle over each
+     collated shard with the same statistics, globalized and merged;
+     each rank's ``dvbyte_decode`` launches must rise by one per step.
+     A step per mode and layout is timed (median of ``MESH_REPS``, host
+     clock) with the share of its fuse: M1's collectives, M2's host copies
+     (its data group is one rank);
+  6. Path A, the variable-growth kernel backend: the first
+     ``TRIANGLE_DOCS`` documents of the WSJ1-like stream (cut to 18,432
+     for the tier, fleet and mesh phases) into ``Engine(B=64,
      growth="triangle")`` (paper §5.4, no device image) through
      ``QueryService(max_batch=32, cache_size=0)`` in batches of 256, its
      bytes per posting beside the Const path's at the same document
@@ -151,7 +176,7 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      on its grid, the launch floor); then ``topk_score`` on
      seeded inputs of 9 and 40 segments over the same docids (off the
      path: a ranked query has 1-4 terms);
-  6. one JSON line listing each kernel with its launches, parity error,
+  7. one JSON line listing each kernel with its launches, parity error,
      times and bound; the card again; and as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -168,6 +193,9 @@ also at 9 and 40 segments); it drives no path and prints no result line.
 ``--tier-only`` builds only ``fused_query``, builds the Const engine as
 phase 3 does (without the split path) and runs the tier phase on it.
 ``--fleet-only`` builds only ``fused_query`` and runs phase 4 alone.
+``--mesh-only`` builds only ``dvbyte_decode``, ingests the Const stream
+to its freeze and deals the fleet's documents into two host indexes, and
+runs phase 5 alone.
 ``--fused-only PT`` builds only ``fused_query`` and times it on phase 3's
 first prepared batch of 32 queries per mode, read from PT, or first
 written there from a Const engine built as phase 3 builds it (a CRC of
@@ -187,8 +215,10 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from pathlib import Path
@@ -203,9 +233,9 @@ REPS = 20                      # timed calls of a plain version or a batch
 LAUNCHES = 20                  # back-to-back kernel launches per timed run
 RUNS = 7                       # timed runs per turn
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-TRIANGLE_DOCS = 36_864         # Path A's stream: WSJ1-like, cut (full:
-                               # 98,732) to make room for the tier phase
-                               # and then the fleet phase; a batch
+TRIANGLE_DOCS = 18_432         # Path A's stream: WSJ1-like, cut (full:
+                               # 98,732) to make room for the tier, fleet
+                               # and mesh phases; a batch
                                # boundary of the Const path, which records
                                # its bytes/posting there
 FLEET_DOCS = 24_576            # the fleet phase's stream: the first 24,576
@@ -1157,14 +1187,16 @@ def hybrid_phase(eng, corpus, names, probs, rng) -> dict:
                 retrieval_cand=cand)
 
 
-def const_engine(n_docs: int, rng, on_delta=None) -> dict:
+def const_engine(n_docs: int, rng, on_delta=None, on_freeze=None) -> dict:
     """The Const main path's engine: the first ``n_docs`` documents of the
     WSJ1-like stream through ``QueryService.ingest_batch`` in batches of
     256, ``collate_now()`` at 90 %, then 8 deletes per batch.  ``on_delta``
     (eng, rng, names, probs), if given, runs once after the first
     post-freeze batch, before any delete; its result is returned as
-    ``split``.  The index's bytes per posting at ``TRIANGLE_DOCS``
-    documents, Path A's count, are returned as ``bpp_at``."""
+    ``split``.  ``on_freeze`` (eng, names, probs), if given, runs right
+    after ``collate_now()``; its result is returned as ``frozen``.  The
+    index's bytes per posting at ``TRIANGLE_DOCS`` documents, Path A's
+    count, are returned as ``bpp_at``."""
     import torch
     from repro_torch.data.corpus import WSJ1_LIKE, SyntheticCorpus, term_table
     from repro_torch.engine import Engine
@@ -1175,7 +1207,7 @@ def const_engine(n_docs: int, rng, on_delta=None) -> dict:
     names = term_table(spec.universe)
     probs = 1.0 / np.arange(1, spec.universe + 1) ** spec.zipf_s
     probs /= probs.sum()
-    split = None
+    split = frozen = None
     name_len = np.fromiter((len(s) for s in names), np.int64,
                            count=len(names))
     eng = Engine(B=64, growth="const", delta_compact_frac=None)
@@ -1200,6 +1232,8 @@ def const_engine(n_docs: int, rng, on_delta=None) -> dict:
                 eng.collate_now()
                 torch.cuda.synchronize()
                 collate_s = time.perf_counter() - t0
+                if on_freeze is not None:
+                    frozen = on_freeze(eng, names, probs)
             elif eng.index.num_docs > freeze_at:
                 if on_delta is not None and split is None:
                     split = on_delta(eng, rng, names, probs)
@@ -1209,7 +1243,8 @@ def const_engine(n_docs: int, rng, on_delta=None) -> dict:
                         dead.add(d)
                         svc.delete(d)
     return dict(eng=eng, svc=svc, corpus=corpus, names=names, probs=probs,
-                split=split, freeze_at=freeze_at, collate_s=collate_s,
+                split=split, frozen=frozen, freeze_at=freeze_at,
+                collate_s=collate_s,
                 bpp_at=bpp_at,
                 text_bytes=text_bytes, wall_s=time.perf_counter() - t_gen)
 
@@ -1478,7 +1513,10 @@ def main_path(n_docs: int) -> dict:
 
     fq_kernel.launches = 0              # counts from here are the path's
     rng = np.random.default_rng(2024)
-    c = const_engine(n_docs, rng, on_delta=split_path)
+    c = const_engine(n_docs, rng, on_delta=split_path,
+                     on_freeze=lambda eng, names, probs: capture_frozen(
+                         eng, names, probs, Path(tempfile.mkdtemp(
+                             prefix="mesh-m2-"))))
     eng, svc, corpus = c["eng"], c["svc"], c["corpus"]
     names, probs, split = c["names"], c["probs"], c["split"]
     freeze_at, collate_s = c["freeze_at"], c["collate_s"]
@@ -1593,7 +1631,7 @@ def main_path(n_docs: int) -> dict:
             "bound_by": bound_by, "tier_phase_launches": tier["launches"],
             "library_ms": None, "split": split, "hybrid": hybrid,
             "index": const_index, "e2e": e2e,
-            "ingest_rate": st.num_docs / ingest_s}
+            "ingest_rate": st.num_docs / ingest_s, "frozen": c["frozen"]}
 
 
 def tier_only(n_docs: int) -> None:
@@ -2016,11 +2054,436 @@ def fleet_phase(const: dict | None) -> dict:
         f"{time.perf_counter() - t_phase:.3f} s ({card})")
     svc.close()
     fleet.close()
+    return {"launches": launches, "names": names, "probs": probs,
+            "indexes": [e.index for e in fleet.engines]}
+
+
+# --------------------------------------------------------------------------
+# phase 5: the device-mesh query step, two ranks on the card
+# --------------------------------------------------------------------------
+
+MESH_REPS = 5           # timed steps per mode and layout (median)
+MESH_HOST_Q = 32        # queries per mode held against the host oracle
+MESH_BACKEND = "gloo"   # NCCL does not put two ranks on one card
+MESH_DEVICE = "cuda:0"  # both ranks' card
+MESH_IMAGE = ("blocks", "term_slot", "term_nblk", "term_skip", "term_nx",
+              "term_ft")
+
+
+def save_image(img, folder: Path) -> None:
+    """A device image's arrays as ``.npy`` files, for a rank to load."""
+    folder.mkdir(parents=True, exist_ok=True)
+    for f in MESH_IMAGE:
+        np.save(folder / f"{f}.npy", getattr(img, f).cpu().numpy())
+    (folder / "meta.json").write_text(json.dumps(
+        {"num_docs": int(img.num_docs), "F": int(img.F)}))
+
+
+def load_image(folder, device):
+    import torch
+    from repro_torch.core.device_index import DeviceIndex
+    folder = Path(folder)
+    return DeviceIndex(
+        **{f: torch.from_numpy(np.load(folder / f"{f}.npy")).to(device)
+           for f in MESH_IMAGE},
+        **json.loads((folder / "meta.json").read_text()))
+
+
+def capture_frozen(eng, names, probs, folder: Path) -> dict:
+    """Layout M2's inputs, taken right after the Const path's freeze: the
+    frozen image's arrays saved under ``folder``, a clone of the collated
+    host index (the host oracle reads it) and the vocabulary of the image's
+    term ids.  The mesh step reads every posting of the image, so the
+    oracle's clone keeps no tombstones."""
+    t = time.perf_counter()
+    img = eng.resident._frozen_raw
+    save_image(img, folder)
+    index = eng.index.clone()
+    index.tombstones = set()
+    return dict(folders=[str(folder)], indexes=[index],
+                vocab=list(eng.vocab), names=names, probs=probs,
+                capture_s=time.perf_counter() - t)
+
+
+def const_frozen(n_docs: int, folder: Path) -> dict:
+    """``--mesh-only``: :func:`capture_frozen` from a Const engine built as
+    phase 3 builds it, the stream stopped at the freeze."""
+    def stop(eng, names, probs):
+        raise _Captured(capture_frozen(eng, names, probs, folder))
+
+    try:
+        const_engine(n_docs, np.random.default_rng(2024), on_freeze=stop)
+    except _Captured as c:
+        return c.args[0]
+    fail("the Const stream ended before its freeze")
+
+
+def fleet_indexes() -> dict:
+    """``--mesh-only``: layout M1's host shards without the fleet phase: the
+    first ``FLEET_DOCS`` WSJ1-like documents through a host
+    ``ShardedEngine(num_shards=2)`` in batches of 256, as the fleet phase
+    feeds its own (no device image is built).  The fleet phase's traffic
+    documents and deletes are not replayed."""
+    from repro_torch.core.sharded_index import ShardedEngine
+    from repro_torch.data.corpus import WSJ1_LIKE, SyntheticCorpus, term_table
+    spec = WSJ1_LIKE.scaled(FLEET_DOCS + 256)
+    names = term_table(spec.universe)
+    probs = 1.0 / np.arange(1, spec.universe + 1) ** spec.zipf_s
+    probs /= probs.sum()
+    docs = [[names[i] for i in ids.tolist()]
+            for ids in SyntheticCorpus(spec).doc_term_ids()][:FLEET_DOCS]
+    with ShardedEngine(num_shards=2, B=64, growth="const",
+                       delta_compact_frac=None, device="cpu",
+                       parallel=False) as fleet:
+        for i in range(0, FLEET_DOCS, 256):
+            fleet.add_documents(docs[i:i + 256])
+    return dict(indexes=[e.index for e in fleet.engines], names=names,
+                probs=probs)
+
+
+def mesh_queries(rng, names, cdf, tid: dict, n: int, T: int):
+    """``n`` queries of 1 to ``T`` terms drawn by Zipf rank among
+    ``names`` (``cdf``: the cumulative Zipf probabilities), keeping those
+    whose terms are all in ``tid``: (term ids (n, T) int32, mask (n, T)
+    bool, the queries' terms)."""
+    qt = np.zeros((n, T), np.int32)
+    qm = np.zeros((n, T), bool)
+    terms: list[list[str]] = []
+    while len(terms) < n:
+        ranks = np.minimum(np.searchsorted(
+            cdf, rng.random(int(rng.integers(1, T + 1)))), len(names) - 1)
+        ts = list(dict.fromkeys(names[r] for r in ranks.tolist()))
+        ids = [tid.get(t.encode()) for t in ts]
+        if None in ids:
+            continue
+        qt[len(terms), :len(ids)] = ids
+        qm[len(terms), :len(ids)] = True
+        terms.append(ts)
+    return qt, qm, terms
+
+
+def mesh_rank(rank: int, world: int, job_path: str) -> dict:
+    """One rank of the mesh phase (a spawned process on ``cuda:0``): for
+    each layout, its shard's image from the ``.npy`` files, then every run
+    of the job through the port's ``make_sharded_query_step`` on a
+    ``make_host_mesh`` mesh; each step must launch ``dvbyte_decode`` once.
+    Rank 0 returns the assembled answers; every rank its step times."""
+    import torch
+    from repro_torch.core.sharded_index import make_sharded_query_step
+    from repro_torch.kernels.dvbyte_decode import kernel as dv_kernel
+    from repro_torch.launch import make_host_mesh
+    job = json.loads(Path(job_path).read_text())
+    dev = torch.device(MESH_DEVICE)
+    torch.cuda.set_device(dev)
+    out: dict = {"answers": {}, "times": {}}
+    dv_kernel.launches = 0
+    steps = 0
+    for lay in job["layouts"]:
+        mesh = make_host_mesh(model=lay["model"])
+        q = {k: torch.from_numpy(v).to(dev)
+             for k, v in np.load(lay["queries"]).items()}
+        img = off = None
+        for run in lay["runs"]:
+            step = make_sharded_query_step(
+                mesh, k=K, max_blocks=run["max_blocks"],
+                num_docs=lay["num_docs"], mode=run["mode"])
+            if img is None:
+                img = load_image(lay["folders"][step.shard], dev)
+                off = lay["offsets"][step.shard]
+            qt, qm = q[run["batch"] + "_t"], q[run["batch"] + "_m"]
+
+            def call():
+                """One step, its local half and its collectives timed
+                apart (ms); ``dvbyte_decode`` must launch once in it."""
+                nonlocal steps
+                before = dv_kernel.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                local = step.local(img, off, qt, qm)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                res = step.fuse(local)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                steps += 1
+                if dv_kernel.launches - before != 1:
+                    raise RuntimeError(
+                        f"rank {rank} {lay['name']} {run['key']}: "
+                        f"dvbyte_decode launched "
+                        f"{dv_kernel.launches - before} times in one step")
+                return res, (t2 - t0) * 1e3, (t2 - t1) * 1e3
+
+            res, _, _ = call()
+            full = step.assemble(res, dst=0)
+            if full is not None:
+                out["answers"][f"{lay['name']}/{run['key']}"] = [
+                    x.cpu().numpy() for x in full]
+            if run["timed"]:
+                times = [call()[1:] for _ in range(2 + MESH_REPS)][2:]
+                out["times"][f"{lay['name']}/{run['key']}"] = [
+                    float(np.median([t[0] for t in times])),
+                    float(np.median([t[1] for t in times]))]
+        del img
+        torch.cuda.empty_cache()
+    out["launches"], out["steps"] = dv_kernel.launches, steps
+    out["device"] = torch.cuda.get_device_name(dev)
+    return out
+
+
+def mesh_layout(name: str, indexes: list, vocab: list, work: Path,
+                model: int, names, probs, rng, saved=None) -> dict:
+    """One layout's images, queries and runs, written under ``work`` for
+    the ranks.  The images: the one ``saved`` by :func:`capture_frozen`
+    (M2), or each collated host index imaged on one common ``vocab`` (term
+    ids are global, and each shard numbers its terms in its own order),
+    ``term_ft`` rebased to the shards' summed store f_t (each image keeps
+    its own ``num_docs``; the step's is the total: the reference's
+    recipe)."""
+    from repro_torch.configs.paper_index import INDEX_SHAPES
+    from repro_torch.core.device_index import (build_device_image,
+                                               with_global_stats)
+    from repro_torch.core.sharded_index import shard_doc_offsets
+    if saved is None:
+        ims = [build_device_image(ix, vocab, device=MESH_DEVICE)
+               for ix in indexes]
+        gft = sum(im.term_ft.long() for im in ims).cpu().numpy()
+        ims = [with_global_stats(im, gft, im.num_docs) for im in ims]
+        folders = [work / f"{name}_{s}" for s in range(len(ims))]
+        for im, f in zip(ims, folders):
+            save_image(im, f)
+    else:
+        folders = [Path(saved)]
+        ims = [load_image(saved, MESH_DEVICE)]
+    tid = {t: i for i, t in enumerate(vocab)}
+    nblk = np.stack([im.term_nblk.cpu().numpy() for im in ims])
+    ft = ims[0].term_ft.cpu().numpy()
+    cdf = np.cumsum(probs)
+    rank, conj = INDEX_SHAPES["query_rank"], INDEX_SHAPES["query_conj"]
+    batches = {}
+    for key, n, T in (("query_rank", rank["qbatch"], rank["qterms"]),
+                      ("query_conj", conj["qbatch"], conj["qterms"]),
+                      ("host_rank", MESH_HOST_Q, rank["qterms"]),
+                      ("host_conj", MESH_HOST_Q, conj["qterms"])):
+        qt, qm, terms = mesh_queries(rng, names, cdf, tid, n, T)
+        batches[key] = dict(t=qt, m=qm, terms=terms,
+                            mb=int(nblk[:, qt[qm]].max()))
+    qpath = work / f"{name}_queries.npz"
+    np.savez(qpath, **{f"{k}_{x}": b[x] for k, b in batches.items()
+                       for x in ("t", "m")})
+    runs = []
+    for mode, batch, timed in (
+            ("ranked_sparse", "query_rank", True),
+            ("ranked", "query_rank", True),
+            ("conjunctive", "query_conj", True),
+            ("ranked_sparse", "host_rank", False),
+            ("ranked", "host_rank", False),
+            ("conjunctive", "host_conj", False)):
+        runs.append(dict(mode=mode, batch=batch, timed=timed,
+                         key=f"{mode}/{batch}",
+                         max_blocks=(INDEX_SHAPES[batch]["max_blocks"]
+                                     if timed else batches[batch]["mb"])))
+    offsets = shard_doc_offsets(ims).tolist()
+    return dict(name=name, model=model, folders=[str(f) for f in folders],
+                offsets=offsets, num_docs=sum(im.num_docs for im in ims),
+                queries=str(qpath), runs=runs, ims=ims, indexes=indexes,
+                batches=batches,
+                stats={t: int(ft[tid[t.encode()]]) for b in batches.values()
+                       for ts in b["terms"] for t in ts})
+
+
+def mesh_host_oracle(lay: dict, run: dict) -> list:
+    """The host oracle of a host batch: the core's ``conjunctive_query``
+    (each shard's local docids) or ``ranked_disjunctive_taat`` over each
+    collated shard with the layout's global statistics, globalized by the
+    offsets and merged (score descending, global docid ascending)."""
+    from repro_torch.core.query import (CollectionStats, conjunctive_query,
+                                        ranked_disjunctive_taat)
+    stats = CollectionStats(num_docs=lay["num_docs"], avg_doclen=0.0,
+                            ft={t.encode(): f
+                                for t, f in lay["stats"].items()})
+    out = []
+    for terms in lay["batches"][run["batch"]]["terms"]:
+        if run["mode"] == "conjunctive":
+            out.append([conjunctive_query(ix, terms)
+                        for ix in lay["indexes"]])
+            continue
+        cand = []
+        for ix, off in zip(lay["indexes"], lay["offsets"]):
+            d, s = ranked_disjunctive_taat(ix, terms, k=K, stats=stats)
+            cand += [(-float(sc), off + int(dd)) for dd, sc in zip(d, s)]
+        cand.sort()
+        out.append(cand[:K])
+    return out
+
+
+def mesh_check(lay: dict, run: dict, got, host_cache: dict) -> str:
+    """A rank-assembled answer against ``sharded_query_plain`` with the
+    plain decode (``decode_blocks``: the ranks launch the kernel) on the
+    same images on the card (conjunctive bitmaps and counts equal;
+    ``ranked_sparse`` docids equal, scores within ``PARITY_RTOL``;
+    ``ranked`` by :func:`ranking_agrees` at ``HOST_RTOL``: its float
+    atomics are not reproducible), and a host batch against the host
+    oracle."""
+    import torch
+    from repro_torch.core.device_index import decode_blocks
+    from repro_torch.core.sharded_index import sharded_query_plain
+    b = lay["batches"][run["batch"]]
+    mode = run["mode"]
+    qt, qm = (torch.from_numpy(b[x]).to(MESH_DEVICE) for x in ("t", "m"))
+    plain = sharded_query_plain(
+        lay["ims"], lay["offsets"], qt, qm, k=K,
+        max_blocks=run["max_blocks"], num_docs=lay["num_docs"],
+        decode_fn=decode_blocks, mode=mode)
+    pa, pb = (x.cpu().numpy() for x in plain)
+    ga, gb = got
+    label = f"mesh {lay['name']} {run['key']}"
+    if mode == "conjunctive":
+        if not (np.array_equal(ga, pa) and np.array_equal(gb, pb)):
+            fail(f"{label}: bitmap or counts differ from the plain version")
+    for row in range(ga.shape[0]):
+        if mode == "ranked_sparse":
+            ok = (np.array_equal(ga[row], pa[row])
+                  and np.allclose(gb[row], pb[row], rtol=PARITY_RTOL,
+                                  atol=0))
+        elif mode == "ranked":
+            ok = ranking_agrees(ga[row], gb[row], pa[row], pb[row],
+                                HOST_RTOL)
+        else:
+            ok = True
+        if not ok:
+            fail(f"{label} row {row}: {ga[row].tolist()} {gb[row].tolist()}"
+                 f" plain {pa[row].tolist()} {pb[row].tolist()}")
+    if run["timed"]:
+        return "plain"
+    key = (run["batch"], mode == "conjunctive")
+    if key not in host_cache:
+        host_cache[key] = mesh_host_oracle(lay, run)
+    N = lay["num_docs"]
+    for row, want in enumerate(host_cache[key]):
+        if mode == "conjunctive":
+            parts = [np.flatnonzero(ga[row, s * N:(s + 1) * N]) + 1
+                     for s in range(len(want))]
+            if (any(p.tolist() != w.tolist() for p, w in zip(parts, want))
+                    or int(gb[row]) != sum(len(w) for w in want)):
+                fail(f"{label} row {row}: hits per shard "
+                     f"{[len(p) for p in parts]} host "
+                     f"{[len(w) for w in want]}")
+            continue
+        live = np.isfinite(gb[row]) & (gb[row] > 0)
+        hd = np.array([d for _, d in want], np.int64)
+        hs = np.array([-s for s, _ in want])
+        if not ranking_agrees(ga[row][live], gb[row][live], hd, hs,
+                              HOST_RTOL):
+            fail(f"{label} row {row}: {ga[row].tolist()} "
+                 f"{gb[row].tolist()} host {hd.tolist()} {hs.tolist()}")
+    return "plain and host"
+
+
+def mesh_phase(m1: dict, m2: dict) -> dict:
+    """Phase 5: the port's device-mesh query step on two ranks, each a
+    process on the one card, gloo collectives on the host.  Layout M1,
+    (data 2, model 1): the two fleet shards ``m1["indexes"]``, collated.
+    Layout M2, (data 1, model 2): the Const path's frozen image saved by
+    :func:`capture_frozen`, replicated, each rank taking 128 of the 256
+    queries."""
+    import torch
+    from repro_torch.core.collate import collate
+    from repro_torch.launch import launch
+    card = card_line()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(8192)
+    folder = Path(tempfile.mkdtemp(prefix="mesh-"))
+    try:
+        t = time.perf_counter()
+        cols = [collate(ix) for ix in m1["indexes"]]
+        for c in cols:
+            c.tombstones = set()    # the mesh step reads every posting
+        vocab = list(dict.fromkeys(term for c in cols
+                                   for term, _ in c.terms()))
+        lays = [mesh_layout("M1", cols, vocab, folder, 1, m1["names"],
+                            m1["probs"], rng),
+                mesh_layout("M2", m2["indexes"], m2["vocab"], folder, 2,
+                            m2["names"], m2["probs"], rng,
+                            saved=m2["folders"][0])]
+        prep_s = time.perf_counter() - t
+        for lay in lays:
+            ims, b = lay["ims"], lay["batches"]
+            say(f"[mesh] {lay['name']} (data {len(ims)}, model "
+                f"{lay['model']}): {len(ims)} image(s) of "
+                f"{[im.num_docs for im in ims]} docs, "
+                f"{[im.blocks.shape[0] for im in ims]} blocks ("
+                + ", ".join(f"{im.blocks.shape[0] / 2**20:.4f}" for im in ims)
+                + " of the paper's 2^20 a shard), "
+                f"{ims[0].term_slot.shape[0]} terms, offsets "
+                f"{lay['offsets']}, step N {lay['num_docs']}; query_rank "
+                f"{' x '.join(map(str, b['query_rank']['t'].shape))} and "
+                f"query_conj "
+                f"{' x '.join(map(str, b['query_conj']['t'].shape))} at "
+                f"max_blocks {lay['runs'][0]['max_blocks']} / "
+                f"{lay['runs'][2]['max_blocks']}, host batches of "
+                f"{MESH_HOST_Q} at max_blocks {b['host_rank']['mb']} / "
+                f"{b['host_conj']['mb']}")
+        say(f"[mesh] backend {MESH_BACKEND}, 2 ranks on 1 card (both on "
+            f"cuda:0; NCCL does not put two ranks on one card, so it is not "
+            f"exercised here); inputs built in {prep_s:.3f} s (M1: collate, "
+            f"images on one vocabulary, global f_t; M2 saved at the freeze "
+            f"in {m2['capture_s']:.3f} s)")
+        job = folder / "job.json"
+        job.write_text(json.dumps({"layouts": [
+            {k: lay[k] for k in ("name", "model", "folders", "offsets",
+                                 "num_docs", "queries", "runs")}
+            for lay in lays]}))
+        t = time.perf_counter()
+        ranks = launch(mesh_rank, 2, backend=MESH_BACKEND, store_dir=folder,
+                       args=(str(job),), deadline_s=600)
+        world_s = time.perf_counter() - t
+        host_cache: dict = {}
+        t = time.perf_counter()
+        for lay in lays:
+            host_cache.clear()
+            for run in lay["runs"]:
+                key = f"{lay['name']}/{run['key']}"
+                what = mesh_check(lay, run, ranks[0]["answers"][key],
+                                  host_cache)
+                if run["timed"]:
+                    t0, t1 = (ranks[r]["times"][key] for r in range(2))
+                    fuse = ("its collectives, with the wait for the other "
+                            "rank," if len(lay["ims"]) > 1 else
+                            "its fuse (a data group of one rank: no "
+                            "cross-rank collective, so host copies and the "
+                            "card shared with the other rank's step)")
+                    shape = " x ".join(
+                        map(str, lay["batches"][run["batch"]]["t"].shape))
+                    say(f"[time] mesh {key.replace('/', ' ')} ({shape}, "
+                        f"max_blocks {run['max_blocks']}): step "
+                        f"{t0[0]:.4f} / {t1[0]:.4f} ms (rank 0 / rank 1), "
+                        f"{fuse} {t0[1]:.4f} / {t1[1]:.4f} ms (share "
+                        f"{t0[1] / t0[0]:.4f} / {t1[1] / t1[0]:.4f}); "
+                        f"medians of {MESH_REPS}, host clock, both ranks "
+                        f"on one card; equals the {what} version ({card})")
+        check_s = time.perf_counter() - t
+        launches = [r["launches"] for r in ranks]
+        if any(r["launches"] != r["steps"] for r in ranks):
+            fail(f"mesh: dvbyte_decode launches {launches} against steps "
+                 f"{[r['steps'] for r in ranks]}")
+        if any(r["device"] != torch.cuda.get_device_name(0) for r in ranks):
+            fail("a mesh rank ran on another device")
+    finally:
+        for f in (folder, *m2["folders"]):
+            shutil.rmtree(f, ignore_errors=True)
+    say(f"[mesh] every answer equals sharded_query_plain with the plain "
+        f"decode on the same images (conjunctive bitmaps and counts, "
+        f"ranked_sparse docids and scores "
+        f"within rtol {PARITY_RTOL}, ranked within {HOST_RTOL} with "
+        f"near-tie swaps), every host batch the host oracle; dvbyte_decode "
+        f"launches per rank {launches}, one per step; the world took "
+        f"{world_s:.3f} s, the checks {check_s:.3f} s, the phase "
+        f"{time.perf_counter() - t_phase:.3f} s ({card})")
     return {"launches": launches}
 
 
 # --------------------------------------------------------------------------
-# phase 5: Path A, the variable-growth kernel backend at full scale
+# phase 6: Path A, the variable-growth kernel backend at full scale
 # --------------------------------------------------------------------------
 
 
@@ -2398,6 +2861,12 @@ def main() -> int:
                          "(a two-shard fleet behind the pipelined service: "
                          "ingest, freeze, deletes, query rounds, traffic), "
                          "and stop: no other path is driven")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build dvbyte_decode, ingest what the mesh phase's "
+                         "layouts need (the Const stream of --docs "
+                         "documents to its freeze, the fleet's documents "
+                         "into two shards) and run the mesh phase alone, "
+                         "and stop: no other path is driven")
     ap.add_argument("--fused-only", type=Path, metavar="PT",
                     help="time the fused kernel alone on the main path's "
                          "prepared batches, read from PT (written there "
@@ -2440,6 +2909,17 @@ def main() -> int:
         say(f"[card] {card_line()}")
         say("[done] --fleet-only: no other path was driven")
         return 0
+    if args.mesh_only:
+        build.build_all(["dvbyte_decode"])
+        m2 = const_frozen(args.docs,
+                          Path(tempfile.mkdtemp(prefix="mesh-m2-")))
+        gc.collect()
+        mesh_phase(fleet_indexes(), m2)
+        if "jax" in sys.modules:
+            fail("jax was imported")
+        say(f"[card] {card_line()}")
+        say("[done] --mesh-only: no other path was driven")
+        return 0
     if args.fused_only:
         build.build_all(["fused_query"])
         for line in build.build_log("fused_query").splitlines():
@@ -2469,7 +2949,10 @@ def main() -> int:
     row = main_path(args.docs)
     gc.collect()       # the Const engine's host index goes before the fleet
     fleet = fleet_phase(row)
-    gc.collect()       # and the fleet's before Path A's
+    mesh = mesh_phase(fleet, row.pop("frozen"))
+    fleet_launches = fleet["launches"]
+    del fleet
+    gc.collect()       # and the fleet's and the mesh's before Path A's
     tri = triangle_path(TRIANGLE_DOCS, row["index"])
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -2477,13 +2960,14 @@ def main() -> int:
     rows = {
         "fused_query": dict(row, max_abs_err=max(small_err,
                                                  row["max_abs_err"]),
-                            fleet_phase_launches=fleet["launches"],
+                            fleet_phase_launches=fleet_launches,
                             parity=f"kernel == plain version (rtol "
                                    f"{PARITY_RTOL}), rerun bit-identical"),
         "intersect": dict(tri["intersect"], bound_by="bytes", parity=exact),
         "topk_score": dict(tri["topk_score"], bound_by="bytes",
                            parity=exact),
-        "dvbyte_decode": dict(row["split"], parity=exact),
+        "dvbyte_decode": dict(row["split"], parity=exact,
+                              mesh_phase_launches=mesh["launches"]),
         "retrieval_dot": dict(row["hybrid"], parity=f"kernel within "
                               f"{DENSE_ATOL} of the plain version, rerun "
                               f"bit-identical"),
@@ -2506,7 +2990,7 @@ def main() -> int:
         for key in ("retrieval_cand", "off_path", "nonempty_rows",
                     "bound_ms_every_row", "decode_share", "floor_ms",
                     "path_query", "tier_phase_launches",
-                    "fleet_phase_launches"):
+                    "fleet_phase_launches", "mesh_phase_launches"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

@@ -1,10 +1,39 @@
-"""Host-level fleet: :class:`ShardedEngine`, a document-partitioned
-fan-out of per-shard :class:`~repro_torch.engine.Engine` s with fleet-wide
-ranking statistics, coordinated freezes and fleet snapshots.
+"""Distributed immediate-access index: the device-mesh query step over
+``torch.distributed``, and the host fleet.
 
-Each shard's device images live on its ``Engine.device``: the card unless
-``device="cpu"`` is passed through ``engine_kwargs``.  The device-mesh
-query step (one program across cards) is not here.
+This realizes the paper's Figure 2 at datacenter scale.  Each rank of a
+``DeviceMesh`` owns one document shard (a collated device image of its
+slice of the stream); queries go to every shard and the per-shard top-k
+results are fused:
+
+  mesh axes:  "data" (and "pod" when multi-pod) partition the document space;
+              "model" partitions the query batch.
+
+  query:      replicated over data/pod, split over model
+  index:      split over (pod, data), replicated over model
+  execution:  local decode+score (device_index.query_step)
+              -> local top-k
+              -> all_gather over (pod, data)
+              -> merge top-k            (the paper's "results fused")
+
+Conjunctive queries need no merge (docid spaces are disjoint): each rank
+keeps its hit bitmap, and only the per-query counts are summed.
+
+Local docids are 1..N_shard; global ids are ``doc_offset[shard] + local``,
+where the offsets are the exclusive prefix sum of the shards' own document
+counts (:func:`shard_doc_offsets`) — exact even when shard sizes diverge.
+
+Two layers live here:
+
+  * :class:`ShardedQueryStep` (:func:`make_sharded_query_step`), the
+    reference's ``shard_map`` query step as the code each rank runs, with
+    ``torch.distributed`` collectives over the mesh's document axes, and
+    :func:`sharded_query_plain`, the same step in one process; and
+  * :class:`ShardedEngine` — the host-level fan-out of per-shard
+    :class:`~repro_torch.engine.Engine` s with fleet-wide ranking
+    statistics, coordinated freezes and fleet snapshots.  Each shard's
+    device images live on its ``Engine.device``: the card unless
+    ``device="cpu"`` is passed through ``engine_kwargs``.
 """
 
 from __future__ import annotations
@@ -12,6 +41,285 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+from .device_index import DeviceIndex, _top_k, query_step
+
+_META = ("term_slot", "term_nblk", "term_skip", "term_nx", "term_ft")
+
+
+def stack_images(images: list[DeviceIndex]) -> DeviceIndex:
+    """Concatenate per-shard images along a leading shard axis.
+
+    All shards must share (V, B) and are padded to the max block count.
+    ``num_docs`` of the stacked image is the TOTAL collection size (the sum
+    over shards — a collection statistic, not a per-shard capacity; the
+    per-shard docid capacity is the ``num_docs`` argument of
+    :func:`make_sharded_query_step`, and per-shard rank offsets come from
+    :func:`shard_doc_offsets`, so shards of unequal size globalize
+    correctly).
+    """
+    nb = max(int(im.blocks.shape[0]) for im in images)
+
+    def padb(x):
+        return torch.cat([x, x.new_zeros((nb - x.shape[0], x.shape[1]))])
+
+    return DeviceIndex(
+        blocks=torch.cat([padb(im.blocks) for im in images]),
+        **{f: torch.cat([getattr(im, f) for im in images]) for f in _META},
+        num_docs=sum(im.num_docs for im in images), F=images[0].F)
+
+
+def shard_doc_offsets(images: list[DeviceIndex]) -> torch.Tensor:
+    """Per-shard global-docid offsets (int32): shard i's local docid d maps
+    to ``offsets[i] + d``.  Built from each shard's OWN ``num_docs`` (an
+    exclusive prefix sum), so shards of different sizes pack the global
+    docid space contiguously — a uniform ``rank * max(num_docs)`` stride
+    would leave holes and disagree with any host-side mapping that
+    concatenates the shard collections."""
+    off = [0]
+    for im in images[:-1]:
+        off.append(off[-1] + int(im.num_docs))
+    return torch.tensor(off, dtype=torch.int32)
+
+
+def stacked_shard(stacked: DeviceIndex, offsets: torch.Tensor,
+                  shard: int) -> tuple[DeviceIndex, int]:
+    """Shard ``shard``'s image and offset out of :func:`stack_images` —
+    the slice the reference's ``P(("pod", "data"))`` hands that shard, its
+    slots local to its own (padded) block array."""
+    S = len(offsets)
+    nb = stacked.blocks.shape[0] // S
+    V = stacked.term_slot.shape[0] // S
+    ends = offsets.tolist()[1:] + [stacked.num_docs]
+    off = int(offsets[shard])
+    return DeviceIndex(
+        blocks=stacked.blocks[shard * nb:(shard + 1) * nb],
+        **{f: getattr(stacked, f)[shard * V:(shard + 1) * V] for f in _META},
+        num_docs=ends[shard] - off, F=stacked.F), off
+
+
+def doc_axes(mesh) -> tuple[str, ...]:
+    """The mesh axes that partition the documents, outermost first."""
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def _axis_size(mesh, axis: str) -> int:
+    return int(mesh.shape[mesh.mesh_dim_names.index(axis)])
+
+
+def _all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """(n, *t.shape): ``t`` from every rank of ``group``, by group rank."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.stack(parts)
+
+
+class ShardedQueryStep:
+    """The query step one rank of ``mesh`` runs (the reference's mapped
+    ``shard_map`` function).  Build it with :func:`make_sharded_query_step`.
+
+    ``step(image, offset, qterms, qmask)`` takes this rank's own shard
+    image (slots local to its own block array), its global-docid offset
+    and the whole replicated query batch, of which it answers its
+    ``"model"`` slice of ``Q / model`` rows (``P("model", None)``):
+
+      * ranked modes (``ranked``, ``ranked_sparse``): ``query_step`` on the
+        shard, docids globalized as ``offset + local`` where > 0, the (Q_l,
+        k) top-k all-gathered over the document axes and re-selected: the
+        shards' lists concatenate shard-major and a stable sort keeps the
+        lower index first among equal scores, so the order is score
+        descending, then global docid ascending.  The reference gathers
+        over "pod" then "data", which on a multi-pod mesh concatenates
+        data-major and breaks cross-shard ties in the order of that
+        concatenation; the port gathers data first and keeps the global
+        docid order on every mesh.  Returns ``(docids (Q_l, k) int32,
+        scores (Q_l, k) float32)``, the same on every shard of a model
+        slice.
+      * ``conjunctive``: returns ``(matches (Q_l, num_docs) bool, counts
+        (Q_l,))``: this shard's own hit bitmap, whose column j is its
+        LOCAL docid j + 1 (not offset-mapped: the reference's
+        ``P("model", doc_axes)`` output tiles the shards' bitmaps, so the
+        whole answer's column ``s * num_docs + j`` is shard s's docid
+        j + 1), and the counts summed over the document axes.
+
+    :meth:`local` and :meth:`fuse` are the two halves of a call (the rank's
+    own work, then the collectives), for timing; :meth:`assemble` gathers
+    the whole batch's answer.  Collectives run on tensors of the mesh's
+    device type: CUDA tensors for NCCL; for gloo the (Q_l, k) results and
+    counts are copied to the host before a collective and back after it,
+    while the decode and scoring stay on the image's device.
+    """
+
+    def __init__(self, mesh, *, k: int, max_blocks: int, num_docs: int,
+                 F: int, decode_fn, mode: str):
+        if "model" not in mesh.mesh_dim_names:
+            raise ValueError("the mesh needs a 'model' axis")
+        self.mesh = mesh
+        self.k, self.max_blocks, self.num_docs, self.F = (k, max_blocks,
+                                                          num_docs, F)
+        self.decode_fn, self.mode = decode_fn, mode
+        self.axes = doc_axes(mesh)
+        self.num_shards = int(np.prod([_axis_size(mesh, a)
+                                       for a in self.axes]))
+        self.shard = 0
+        for a in self.axes:           # P(("pod", "data")): pod-major
+            self.shard = (self.shard * _axis_size(mesh, a)
+                          + mesh.get_local_rank(a))
+        self.model_size = _axis_size(mesh, "model")
+        self.model = mesh.get_local_rank("model")
+        self.comm = torch.device(mesh.device_type)
+
+    def local(self, image: DeviceIndex, offset: int, qterms: torch.Tensor,
+              qmask: torch.Tensor):
+        """This rank's model slice answered on its own shard, docids
+        globalized (ranked) or its local bitmap and counts
+        (conjunctive)."""
+        Q = qterms.shape[0]
+        if Q % self.model_size:
+            raise ValueError(f"a batch of {Q} queries does not split over "
+                             f"{self.model_size} model ranks")
+        ql = Q // self.model_size
+        rows = slice(self.model * ql, (self.model + 1) * ql)
+        img = DeviceIndex(image.blocks, image.term_slot, image.term_nblk,
+                          image.term_skip, image.term_nx, image.term_ft,
+                          num_docs=self.num_docs, F=self.F)
+        out = query_step(img, qterms[rows], qmask[rows], k=self.k,
+                         mode=self.mode, max_blocks=self.max_blocks,
+                         decode_fn=self.decode_fn)
+        if self.mode == "conjunctive":
+            return out
+        d, s = out
+        return torch.where(d > 0, d + int(offset), torch.zeros_like(d)), s
+
+    def fuse(self, out):
+        """The collectives: counts summed (conjunctive), or the per-shard
+        top-k gathered and re-selected (ranked)."""
+        a, b = out
+        dev = a.device
+        if self.mode == "conjunctive":
+            total = b.to(self.comm, copy=True)
+            for ax in self.axes:
+                dist.all_reduce(total, group=self.mesh.get_group(ax))
+            return a, total.to(dev)
+        gd, gs = a.to(self.comm), b.to(self.comm)
+        for ax in reversed(self.axes):    # data, then pod: shard-major
+            g = self.mesh.get_group(ax)
+            gd, gs = _all_gather(gd, g), _all_gather(gs, g)
+        ql, kk = a.shape
+        gd = gd.reshape(-1, ql, kk).transpose(0, 1).reshape(ql, -1).to(dev)
+        gs = gs.reshape(-1, ql, kk).transpose(0, 1).reshape(ql, -1).to(dev)
+        top_s, pos = _top_k(gs, kk)
+        return torch.gather(gd, 1, pos), top_s
+
+    def __call__(self, image: DeviceIndex, offset: int,
+                 qterms: torch.Tensor, qmask: torch.Tensor):
+        return self.fuse(self.local(image, offset, qterms, qmask))
+
+    def assemble(self, out, dst: int | None = None):
+        """The whole batch's answer from every rank's :meth:`__call__`
+        output: ``(docids, scores)`` (Q, k), or ``(matches (Q, S *
+        num_docs), counts (Q,))`` in the reference's tiled layout.  Every
+        rank of the mesh (which spans the process group) must call it; it
+        returns the answer on every rank, or on rank ``dst`` only (None
+        elsewhere)."""
+        a, b = out
+        dev = a.device
+        is_bool = a.dtype == torch.bool
+        ga = _all_gather((a.view(torch.uint8) if is_bool else a)
+                         .to(self.comm))
+        gb = _all_gather(b.to(self.comm))
+        if dst is not None and dist.get_rank() != dst:
+            return None
+        if is_bool:
+            ga = ga.view(torch.bool)
+        ranks = self.mesh.mesh.reshape(self.num_shards, self.model_size)
+        first = ranks[0].tolist()         # shard 0's rank of each slice
+        if self.mode == "conjunctive":
+            rows = [torch.cat([ga[r] for r in ranks[:, m].tolist()], dim=1)
+                    for m in range(self.model_size)]
+            return (torch.cat(rows).to(dev),
+                    torch.cat([gb[r] for r in first]).to(dev))
+        return (torch.cat([ga[r] for r in first]).to(dev),
+                torch.cat([gb[r] for r in first]).to(dev))
+
+
+def make_sharded_query_step(mesh, *, k: int = 10, max_blocks: int = 64,
+                            num_docs: int = 1 << 20, F: int = 4,
+                            decode_fn=None, mode: str = "ranked"
+                            ) -> ShardedQueryStep:
+    """The sharded query step for this rank of ``mesh`` (a
+    ``DeviceMesh`` with a "model" axis and a "data" axis, and optionally a
+    leading "pod" axis): see :class:`ShardedQueryStep`.
+
+    ``num_docs`` is both the per-shard docid CAPACITY (accumulators are
+    sized by it; every shard's local docids must fit) and the N the scorer
+    weights idf with.  For exact global ranked statistics, rebase each
+    shard's ``term_ft`` to the collection-wide document frequencies via
+    :func:`~repro_torch.core.device_index.with_global_stats` — KEEPING each
+    image's shard-local ``num_docs`` (``shard_doc_offsets`` prefix-sums it)
+    — and pass the collection total as THIS function's ``num_docs``.
+    Shard-local ``term_ft`` gives the standard document-partitioned idf
+    approximation instead, not a merge-exact score.  ``decode_fn`` None
+    takes the ``dvbyte_decode`` op (its CUDA kernel for an image on the
+    card).
+    """
+    return ShardedQueryStep(mesh, k=k, max_blocks=max_blocks,
+                            num_docs=num_docs, F=F, decode_fn=decode_fn,
+                            mode=mode)
+
+
+def sharded_query_plain(images: list[DeviceIndex], offsets, qterms, qmask,
+                        *, k: int = 10, max_blocks: int = 64,
+                        num_docs: int = 1 << 20, F: int = 4,
+                        decode_fn=None, mode: str = "ranked"):
+    """The sharded query step computed in one process: ``query_step`` on
+    every shard in turn, then the same merge (ranked) or the tiled bitmap
+    and summed counts (conjunctive) — what
+    :meth:`ShardedQueryStep.assemble` returns for the same images, offsets
+    and batch.  For tests and checks; the mesh path never calls it."""
+    outs = []
+    for im, off in zip(images, [int(o) for o in offsets]):
+        img = DeviceIndex(im.blocks, im.term_slot, im.term_nblk,
+                          im.term_skip, im.term_nx, im.term_ft,
+                          num_docs=num_docs, F=F)
+        a, b = query_step(img, qterms, qmask, k=k, mode=mode,
+                          max_blocks=max_blocks, decode_fn=decode_fn)
+        if mode != "conjunctive":
+            a = torch.where(a > 0, a + off, torch.zeros_like(a))
+        outs.append((a, b))
+    if mode == "conjunctive":
+        return (torch.cat([m for m, _ in outs], dim=1),
+                sum(c for _, c in outs))
+    gd = torch.cat([d for d, _ in outs], dim=1)
+    top_s, pos = _top_k(torch.cat([s for _, s in outs], dim=1),
+                        outs[0][0].shape[1])
+    return torch.gather(gd, 1, pos), top_s
+
+
+def sharded_input_specs(mesh, *, shard_blocks: int, B: int = 64,
+                        vocab: int = 1 << 17, qbatch: int = 256,
+                        qterms: int = 8, num_docs: int = 1 << 20):
+    """Meta-tensor stand-ins of the stacked inputs (the reference's
+    ``ShapeDtypeStruct`` s): blocks, the five per-term arrays, the offsets,
+    the query terms and mask."""
+    nshards = int(np.prod([_axis_size(mesh, a) for a in doc_axes(mesh)]))
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    per_term = meta((nshards * vocab,), torch.int32)
+    return (meta((nshards * shard_blocks, B), torch.uint8),
+            per_term, per_term, per_term, per_term, per_term,
+            meta((nshards,), torch.int32),
+            meta((qbatch, qterms), torch.int32),
+            meta((qbatch, qterms), torch.bool))
+
+
+# --------------------------------------------------------------------------
+# host-level shard fan-out through the unified engine
+# --------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)

@@ -114,6 +114,9 @@ def test_port_source_imports_neither_jax_nor_repro(path):
 
 
 @pytest.mark.parametrize("path", ["examples/hybrid_retrieval_torch.py",
+                                  "examples/quickstart_torch.py",
+                                  "examples/engine_quickstart_torch.py",
+                                  "examples/serve_stream_torch.py",
                                   "chip_smoke.py",
                                   "tests/test_torch_gpu_kernels.py",
                                   "tests/test_torch_gpu_term_kernels.py",
