@@ -12,6 +12,8 @@
     python3 chip_smoke.py --tier-only      # the Const ingest and the tier
                                            # phase alone
     python3 chip_smoke.py --fleet-only     # the fleet phase alone
+    python3 chip_smoke.py --sanitize-only  # the sanitized fleet phase
+                                           # (4b) alone
     python3 chip_smoke.py --mesh-only      # the mesh phase alone, with
                                            # the ingest its layouts need
 
@@ -133,6 +135,26 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      each shard's refresh after an ingest, an engine batch's ms through
      the fleet beside the single engine's, and the traffic's latency
      percentiles and cache hit rate;
+  4b. the sanitized fleet phase (:func:`sanitize_phase`; also alone by
+     ``--sanitize-only``): the port's ``Sanitizer`` is enabled first, then
+     ``ShardedEngine(num_shards=2, B=64, growth="const",
+     delta_compact_frac=None, tier_policy=FreezePolicy(every_docs=1024,
+     background=True, codec="bp128"), max_in_flight=1)`` is built on the
+     card behind ``QueryService(max_batch=32, pipelined=True)``, so its
+     locks are instrumented; every ``guarded_by`` field (the coordinator's
+     slot accounting, each shard writer's ``_completed`` and ``_error``)
+     is shadowed.  The first ``SANITIZE_DOCS`` WSJ1-like documents go
+     through ``ingest_batch`` in batches of 256 (each shard freezes in the
+     background at 1,024 and 2,048 of its documents, the writers contending
+     for one slot); after every 1,024 documents a batch of 32 queries per
+     mode is served and checked as in phase 4, then ``run_traffic`` runs
+     ``SANITIZE_EVENTS`` events; then ``drain_freezes()`` and a last batch
+     per mode.  The sanitizer must report nothing, ``peak_in_flight`` must
+     be 1 with at least one deferred freeze, and the traffic must leave no
+     request unanswered.  Then a seeded lock-order inversion (two locks
+     from a second sanitizer taken in both orders around ``add_document``
+     on a fresh fleet of ``SEEDED_DOCS`` documents) must be reported: the
+     detector was live on this machine;
   5. the mesh phase (:func:`mesh_phase`; also alone by ``--mesh-only``):
      the port's device-mesh query step (``make_sharded_query_step``) on
      two ranks, two processes spawned by ``repro_torch.launch.launch`` on
@@ -193,6 +215,7 @@ also at 9 and 40 segments); it drives no path and prints no result line.
 ``--tier-only`` builds only ``fused_query``, builds the Const engine as
 phase 3 does (without the split path) and runs the tier phase on it.
 ``--fleet-only`` builds only ``fused_query`` and runs phase 4 alone.
+``--sanitize-only`` builds only ``fused_query`` and runs phase 4b alone.
 ``--mesh-only`` builds only ``dvbyte_decode``, ingests the Const stream
 to its freeze and deals the fleet's documents into two host indexes, and
 runs phase 5 alone.
@@ -238,12 +261,22 @@ TRIANGLE_DOCS = 18_432         # Path A's stream: WSJ1-like, cut (full:
                                # and mesh phases; a batch
                                # boundary of the Const path, which records
                                # its bytes/posting there
-FLEET_DOCS = 24_576            # the fleet phase's stream: the first 24,576
-                               # WSJ1-like documents, 12,288 a shard (a cut
+FLEET_DOCS = 12_288            # the fleet phase's stream: the first 12,288
+                               # WSJ1-like documents, 6,144 a shard (a cut
                                # of 98,732 for time: 32,768 took the run
-                               # past its time budget)
-TRAFFIC_EVENTS = 500           # the fleet phase's traffic schedule (cut
-                               # from 1,000 for time)
+                               # past its time budget; 24,576 until the
+                               # sanitized fleet phase 4b, ~75 s, had to be
+                               # paid for)
+TRAFFIC_EVENTS = 300           # the fleet phase's traffic schedule (cut
+                               # from 1,000 for time, then from 500 for
+                               # phase 4b)
+SANITIZE_DOCS = 4_096          # phase 4b's stream: the first 4,096 WSJ1-like
+                               # documents, 2,048 a shard
+SANITIZE_EVERY = 1_024         # phase 4b: a background freeze per 1,024 new
+                               # documents of a shard, and a serving round
+                               # and traffic after every 1,024 of the stream
+SANITIZE_EVENTS = 100          # phase 4b's traffic events after each round
+SEEDED_DOCS = 64               # phase 4b's seeded-inversion fleet
 CONST_DOCS = 73_728            # the Const path's stream, cut (full: 98,732):
                                # 288 batches of 256, passing
                                # TRIANGLE_DOCS at a batch boundary; it
@@ -1855,11 +1888,27 @@ def live_on(eng, q) -> bool:
     return any(i is not None for i in ids)
 
 
-def fleet_round(fleet, svc, groups, label: str) -> list:
+def fleet_stream(n_docs: int):
+    """(term names, Zipf probabilities, documents): the first ``n_docs`` +
+    256 documents of the WSJ1-like stream scaled to that many, as term
+    lists; the last 256 are the traffic's ingests."""
+    from repro_torch.data.corpus import WSJ1_LIKE, SyntheticCorpus, term_table
+    spec = WSJ1_LIKE.scaled(n_docs + 256)
+    names = term_table(spec.universe)
+    probs = 1.0 / np.arange(1, spec.universe + 1) ** spec.zipf_s
+    probs /= probs.sum()
+    docs = [[names[i] for i in ids.tolist()]
+            for ids in SyntheticCorpus(spec).doc_term_ids()]
+    return names, probs, docs
+
+
+def fleet_round(fleet, svc, groups, label: str,
+                times: list | None = None) -> list:
     """Each group of 32 through the pipelined service (one flush, one
     fan-out); every answer against the fleet's host backend; each shard's
     ``fused_query`` launches against one per group with a query live on
-    it, the ones the service answers from its cache left out."""
+    it, the ones the service answers from its cache left out.  ``times``
+    collects each group's seconds in the service (host clock)."""
     import torch
     from repro_torch.kernels.fused_query import kernel as fq_kernel
     tickets = []
@@ -1870,8 +1919,11 @@ def fleet_round(fleet, svc, groups, label: str) -> list:
                   if svc._cache_key(q) not in svc._cache]
         want = [int(any(live_on(e, q) for q in misses))
                 for e in fleet.engines]
+        t = time.perf_counter()
         ts = [svc.submit(q) for q in qs]        # 32 fill a batch: flush
         torch.cuda.synchronize()
+        if times is not None:
+            times.append(time.perf_counter() - t)
         got = [e.resident.batches_served - b
                for e, b in zip(fleet.engines, served)]
         if got != want or fq_kernel.launches - before != sum(want):
@@ -1893,20 +1945,13 @@ def fleet_phase(const: dict | None) -> dict:
     for comparison (None with ``--fleet-only``)."""
     import torch
     from repro_torch.core.sharded_index import ShardedEngine
-    from repro_torch.data.corpus import WSJ1_LIKE, SyntheticCorpus, term_table
     from repro_torch.kernels.fused_query import kernel as fq_kernel
     from repro_torch.serve import (QueryService, WorkloadSpec,
                                    generate_schedule, run_traffic)
     card = card_line()
     t_phase = time.perf_counter()
-    spec = WSJ1_LIKE.scaled(FLEET_DOCS + 256)
-    names = term_table(spec.universe)
-    probs = 1.0 / np.arange(1, spec.universe + 1) ** spec.zipf_s
-    probs /= probs.sum()
-    t0 = time.perf_counter()
-    docs = [[names[i] for i in ids.tolist()]
-            for ids in SyntheticCorpus(spec).doc_term_ids()]
-    gen_s = time.perf_counter() - t0
+    names, probs, docs = fleet_stream(FLEET_DOCS)
+    gen_s = time.perf_counter() - t_phase
     stream, more = docs[:FLEET_DOCS], docs[FLEET_DOCS:]
     fq_kernel.launches = 0          # counts from here are the fleet's
     fleet = ShardedEngine(num_shards=2, B=64, growth="const",
@@ -2059,6 +2104,172 @@ def fleet_phase(const: dict | None) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 4b: the fleet's concurrency under the port's sanitizer
+# --------------------------------------------------------------------------
+
+
+def sanitize_phase() -> dict:
+    """Phase 4b: a two-shard fleet on the card behind the pipelined service
+    with background bp128 freezes under one encode slot, built after the
+    port's :class:`~repro_torch.analysis.Sanitizer` is enabled, so that
+    its locks are instrumented and its ``guarded_by`` fields shadowed; then
+    a seeded lock-order inversion on a fresh fleet, which a second
+    sanitizer must catch."""
+    import torch
+    from repro_torch.analysis import Sanitizer
+    from repro_torch.core.lifecycle import FreezePolicy
+    from repro_torch.core.sharded_index import ShardedEngine
+    from repro_torch.kernels.fused_query import kernel as fq_kernel
+    from repro_torch.serve import (QueryService, WorkloadSpec,
+                                   generate_schedule, run_traffic)
+    card = card_line()
+    t_phase = time.perf_counter()
+    names, probs, docs = fleet_stream(SANITIZE_DOCS)
+    gen_s = time.perf_counter() - t_phase
+    stream, more = docs[:SANITIZE_DOCS], docs[SANITIZE_DOCS:]
+    rng = np.random.default_rng(4097)
+    times: list[float] = []         # each served group of 32, s
+    reports = []
+    ingest_s = rounds_s = traffic_s = 0.0
+    fq_kernel.launches = 0          # counts from here are the phase's
+    san = Sanitizer("sanitized-fleet")
+    san.enable()                    # before the fleet: its locks are
+    try:                            # instrumented only if made after this
+        fleet = ShardedEngine(
+            num_shards=2, B=64, growth="const", delta_compact_frac=None,
+            tier_policy=FreezePolicy(every_docs=SANITIZE_EVERY,
+                                     background=True, codec="bp128"),
+            max_in_flight=1)
+        svc = QueryService(fleet, max_batch=32, pipelined=True)
+        coord = fleet.coordinator
+        # every guarded_by field of the port; published and writer_only
+        # fields are lock-free by contract and are not shadowed
+        san.shadow(coord, "_in_flight", "_waiters", "peak_in_flight",
+                   "deferrals", label="FreezeCoordinator")
+        for s, w in enumerate(svc.pipeline._writers):
+            san.shadow(w, "_completed", "_error", label=f"ShardWriter{s}")
+        conds = [coord._cond] + [w._cv for w in svc.pipeline._writers]
+        if not all(type(c._lock).__name__ == "_SanLock" for c in conds):
+            fail("the fleet's locks are not instrumented: build it after "
+                 "Sanitizer.enable()")
+
+        def known(t):
+            return fleet._ft.get(t.encode(), 0) > 0
+
+        def draw():
+            return [zipf_queries(rng, names, probs, None, 32, mode,
+                                 known=known) for mode in MODES]
+
+        for i in range(0, SANITIZE_DOCS, 256):
+            t = time.perf_counter()
+            svc.ingest_batch(stream[i:i + 256])
+            ingest_s += time.perf_counter() - t
+            done = i + 256
+            if done % SANITIZE_EVERY:
+                continue
+            t = time.perf_counter()
+            fleet_round(fleet, svc, draw(), f"sanitized fleet at {done}",
+                        times)
+            rounds_s += time.perf_counter() - t
+            wspec = WorkloadSpec(seed=done // SANITIZE_EVERY,
+                                 num_events=SANITIZE_EVENTS,
+                                 ingest_fraction=0.2, delete_fraction=0.01,
+                                 num_distinct_queries=64, max_terms=3, k=K)
+            t = time.perf_counter()
+            rep = run_traffic(fleet, generate_schedule(wspec, list(names)),
+                              more, service=svc)
+            traffic_s += time.perf_counter() - t
+            if rep.availability_gap > 0:
+                fail(f"the sanitized fleet's traffic at {done} left "
+                     f"{rep.availability_gap} requests unanswered")
+            reports.append(rep)
+        t = time.perf_counter()
+        svc.pipeline.drain()
+        fleet.drain_freezes()
+        drain_s = time.perf_counter() - t
+        t = time.perf_counter()
+        fleet_round(fleet, svc, draw(), "sanitized fleet after "
+                    "drain_freezes", times)
+        rounds_s += time.perf_counter() - t
+        torch.cuda.synchronize()
+        with coord._cond:           # guarded fields: read under the guard
+            peak, deferrals = coord.peak_in_flight, coord.deferrals
+            pending = len(coord._waiters)
+        epochs = [e.lifecycle.epoch for e in fleet.engines]
+        encode_s = [e.lifecycle.last_freeze_s for e in fleet.engines]
+        launches = fq_kernel.launches
+        svc.close()
+        fleet.close()
+    finally:
+        san.disable()
+    if san.findings:
+        fail(f"the sanitizer reported the port's fleet on the card:\n"
+             f"{san.report()}")
+    if peak != 1:
+        fail(f"peak_in_flight {peak} under max_in_flight=1")
+    if deferrals < 1:
+        fail("no freeze was deferred: the two shards' background freezes "
+             "never contended for the one slot")
+    if pending or min(epochs) < 1:
+        fail(f"freezes left after drain_freezes: {pending} queued, epochs "
+             f"{epochs}")
+    run_s = time.perf_counter() - t_phase
+
+    # ---- a seeded inversion, which a second sanitizer must catch --------
+    san2 = Sanitizer("seeded-inversion")
+    ingest_mu, stats_mu = san2.lock("ingest_mu"), san2.lock("stats_mu")
+    san2.enable()
+    try:
+        seeded = ShardedEngine(
+            num_shards=2, B=64, growth="const", delta_compact_frac=None,
+            tier_policy=FreezePolicy(every_docs=8, background=True),
+            max_in_flight=1)
+        for j, d in enumerate(stream[:SEEDED_DOCS]):
+            first, second = ((ingest_mu, stats_mu) if j % 2
+                             else (stats_mu, ingest_mu))    # the seeded bug
+            with first:
+                with second:
+                    seeded.add_document(d)
+        seeded.drain_freezes()
+        seeded.close()
+    finally:
+        san2.disable()
+    caught = [f for f in san2.findings
+              if "lock-order inversion" in f.message
+              and "ingest_mu" in f.message and "stats_mu" in f.message]
+    if not caught:
+        fail(f"the seeded lock-order inversion went undetected on this "
+             f"machine: {san2.report()}")
+    phase_s = time.perf_counter() - t_phase
+    ms = np.asarray(times) * 1e3
+    say(f"[sanitize] two shards behind QueryService(pipelined=True) under "
+        f"the port's sanitizer (locks made after enable() instrumented; "
+        f"FreezeCoordinator._in_flight/_waiters/peak_in_flight/deferrals "
+        f"and each ShardWriter's _completed/_error shadowed): "
+        f"{SANITIZE_DOCS} docs through ingest_batch in {ingest_s:.3f} s "
+        f"({SANITIZE_DOCS / ingest_s:.1f} docs/s); background bp128 "
+        f"freezes every {SANITIZE_EVERY} docs a shard under one slot: "
+        f"{sum(epochs)} granted (epochs per shard {epochs}), {deferrals} "
+        f"deferred, peak in flight {peak}; the last encode per shard "
+        + " / ".join(f"{x:.3f}" for x in encode_s)
+        + f" s; drain_freezes {drain_s:.3f} s; "
+        f"{len(times)} groups of 32 in the service, each "
+        f"{np.median(ms):.3f} ms median, {ms.max():.3f} ms max (host "
+        f"clock, sanitizer on), every answer equal to the fleet host "
+        f"backend's; traffic {len(reports)} x {SANITIZE_EVENTS} events, "
+        f"none unanswered; fused_query launches {launches}; sanitizer "
+        f"findings 0 ({card})")
+    say(f"[sanitize] seeded inversion on a fresh fleet of {SEEDED_DOCS} "
+        f"docs caught: {caught[0].message[:160]}; the phase took "
+        f"{phase_s:.3f} s: generation {gen_s:.3f}, ingest_batch "
+        f"{ingest_s:.3f}, the {len(times) // 3} checked rounds (their "
+        f"flushes wait for the writers) {rounds_s:.3f}, the traffic "
+        f"{traffic_s:.3f}, drain_freezes {drain_s:.3f}, the seeded run "
+        f"{phase_s - run_s:.3f} s ({card})")
+    return {"launches": launches}
+
+
+# --------------------------------------------------------------------------
 # phase 5: the device-mesh query step, two ranks on the card
 # --------------------------------------------------------------------------
 
@@ -2125,13 +2336,8 @@ def fleet_indexes() -> dict:
     feeds its own (no device image is built).  The fleet phase's traffic
     documents and deletes are not replayed."""
     from repro_torch.core.sharded_index import ShardedEngine
-    from repro_torch.data.corpus import WSJ1_LIKE, SyntheticCorpus, term_table
-    spec = WSJ1_LIKE.scaled(FLEET_DOCS + 256)
-    names = term_table(spec.universe)
-    probs = 1.0 / np.arange(1, spec.universe + 1) ** spec.zipf_s
-    probs /= probs.sum()
-    docs = [[names[i] for i in ids.tolist()]
-            for ids in SyntheticCorpus(spec).doc_term_ids()][:FLEET_DOCS]
+    names, probs, docs = fleet_stream(FLEET_DOCS)
+    docs = docs[:FLEET_DOCS]
     with ShardedEngine(num_shards=2, B=64, growth="const",
                        delta_compact_frac=None, device="cpu",
                        parallel=False) as fleet:
@@ -2861,6 +3067,12 @@ def main() -> int:
                          "(a two-shard fleet behind the pipelined service: "
                          "ingest, freeze, deletes, query rounds, traffic), "
                          "and stop: no other path is driven")
+    ap.add_argument("--sanitize-only", action="store_true",
+                    help="build fused_query and run the sanitized fleet "
+                         "phase alone (phase 4b: the port's sanitizer over "
+                         "a two-shard fleet with background freezes, then "
+                         "a seeded inversion), and stop: no other path is "
+                         "driven")
     ap.add_argument("--mesh-only", action="store_true",
                     help="build dvbyte_decode, ingest what the mesh phase's "
                          "layouts need (the Const stream of --docs "
@@ -2909,6 +3121,14 @@ def main() -> int:
         say(f"[card] {card_line()}")
         say("[done] --fleet-only: no other path was driven")
         return 0
+    if args.sanitize_only:
+        build.build_all(["fused_query"])
+        sanitize_phase()
+        if "jax" in sys.modules:
+            fail("jax was imported")
+        say(f"[card] {card_line()}")
+        say("[done] --sanitize-only: no other path was driven")
+        return 0
     if args.mesh_only:
         build.build_all(["dvbyte_decode"])
         m2 = const_frozen(args.docs,
@@ -2949,6 +3169,7 @@ def main() -> int:
     row = main_path(args.docs)
     gc.collect()       # the Const engine's host index goes before the fleet
     fleet = fleet_phase(row)
+    sanitized = sanitize_phase()
     mesh = mesh_phase(fleet, row.pop("frozen"))
     fleet_launches = fleet["launches"]
     del fleet
@@ -2961,6 +3182,7 @@ def main() -> int:
         "fused_query": dict(row, max_abs_err=max(small_err,
                                                  row["max_abs_err"]),
                             fleet_phase_launches=fleet_launches,
+                            sanitize_phase_launches=sanitized["launches"],
                             parity=f"kernel == plain version (rtol "
                                    f"{PARITY_RTOL}), rerun bit-identical"),
         "intersect": dict(tri["intersect"], bound_by="bytes", parity=exact),
@@ -2990,7 +3212,8 @@ def main() -> int:
         for key in ("retrieval_cand", "off_path", "nonempty_rows",
                     "bound_ms_every_row", "decode_share", "floor_ms",
                     "path_query", "tier_phase_launches",
-                    "fleet_phase_launches", "mesh_phase_launches"):
+                    "fleet_phase_launches", "sanitize_phase_launches",
+                    "mesh_phase_launches"):
             if key in r:
                 entry[key] = r[key]
         kernels.append(entry)

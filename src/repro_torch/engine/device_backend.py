@@ -77,14 +77,15 @@ class ResidentImageManager:
         self._frozen_nblk: np.ndarray | None = None   # host copy, per term
         self._baseline = None                          # DeltaBaseline
         self._builder = None                           # DeltaBuilder
-        self._frozen = None             # stats-rebased frozen image
-        self._delta = None              # DeltaIndex
+        self._frozen = None     # writer_only — stats-rebased frozen image
+        self._delta = None              # writer_only — DeltaIndex
         self._doclens = None            # (cap+1,) f32 on the device
         self._alive = None              # packed int32 liveness bits or None
         self._n_stat = None
         self._avg_stat = None
-        self._synced_version = -1
-        self._nblk_np = None            # host (frozen, delta) chain sizes
+        self._synced_version = -1       # writer_only
+        self._nblk_np = None    # writer_only — host (frozen, delta)
+        #                         chain sizes
         self._frozen_mb = 1             # split path's chain cap, frozen
         self._delta_mb = 1              # split path's chain cap, delta
         self._doc_cap = 1024

@@ -99,7 +99,7 @@ class Engine:
         self.planner = Planner(planner, force_backend)
         self.delta_compact_frac = delta_compact_frac
         self.delta_compact_min_blocks = delta_compact_min_blocks
-        self.version = 0                  # bumps per ingested/deleted doc
+        self.version = 0      # published — bumps per ingested/deleted doc
         # when this engine is one shard of a document-partitioned fleet,
         # the fan-out layer installs a callable returning the fleet-wide
         # CollectionStats — every ranked scorer and device-image refresh

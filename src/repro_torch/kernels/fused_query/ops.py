@@ -87,7 +87,8 @@ def _prep_image(image, qterms, qmask, Ns, max_blocks: int, mode: str):
 
 
 def prepare(images, qterms, qmask, *, mode: str, max_blocks,
-            doclens=None, n_stat=None, avg_stat=None, alive=None) -> dict:
+            doclens=None, n_stat: float | None = None,
+            avg_stat: float | None = None, alive=None) -> dict:
     """Everything the fused compute consumes, on the images' device:
     ``parts``, ``nterms``, ``doclens``, ``bm25_norm``, ``alive`` plus the
     static ``F`` and ``cap`` — the keyword arguments of both
@@ -95,7 +96,7 @@ def prepare(images, qterms, qmask, *, mode: str, max_blocks,
     if mode not in FUSED_MODES:
         raise ValueError(f"unsupported fused mode {mode!r}")
     head = images[0]
-    cap = head.num_docs
+    cap: int = head.num_docs      # the images' docid capacity, a host int
     dev = head.blocks.device
     if isinstance(max_blocks, int):
         max_blocks = (max_blocks,) * len(images)

@@ -5,7 +5,7 @@ The same ``WorkloadSpec`` gives the reference's schedule event for event
 (``at_s`` bit-equal; the same kind, document, terms, mode and k); under a
 ``FakeClock`` ``run_traffic`` gives the reference's ``TrafficReport`` for a
 single engine and for a fleet, with background-free freezes and deletes;
-the reference's schedule-purity lint passes the port's generator.  The
+the port's schedule-purity lint passes the port's generator.  The
 reference's own traffic tests are mirrored on the port: seeded
 determinism, SLO evaluation, zero availability gap under a freeze storm
 (one engine and a fleet), and the service's cache counters.
@@ -16,7 +16,6 @@ import dataclasses
 import numpy as np
 import pytest
 
-from repro.analysis import purity
 from repro.core.lifecycle import FreezePolicy as JaxPolicy
 from repro.core.sharded_index import ShardedEngine as JaxFleet
 from repro.engine import Engine as JaxEngine
@@ -24,6 +23,7 @@ from repro.serve import FakeClock as JaxClock
 from repro.serve import WorkloadSpec as JaxSpec
 from repro.serve import generate_schedule as jax_schedule
 from repro.serve import run_traffic as jax_run_traffic
+from repro_torch.analysis import purity
 from repro_torch.core.lifecycle import FreezePolicy
 from repro_torch.core.sharded_index import ShardedEngine
 from repro_torch.engine import Engine, Query
@@ -124,8 +124,9 @@ def test_fake_clock_report_equals_the_references(fleet):
 
 
 def test_schedule_purity_lint():
-    """The reference's lint rejects time-based nondeterminism in schedule
-    generators — and passes the port's generator."""
+    """The port's lint (``repro_torch.analysis.purity``) rejects
+    time-based nondeterminism in schedule generators — and passes the
+    port's generator."""
     bad = "import time\nfrom random import random\nimport numpy as np\n"
     findings = purity.check_schedule_module(bad, "serve/workload.py")
     assert len(findings) == 2
