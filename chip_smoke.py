@@ -16,6 +16,8 @@
                                            # (4b) alone
     python3 chip_smoke.py --mesh-only      # the mesh phase alone, with
                                            # the ingest its layouts need
+    python3 chip_smoke.py --lm-only        # the LM serving path (phase
+                                           # 6) alone, ~1 min
 
 Phases, each printing its own lines; the first failed check exits non-zero:
 
@@ -178,9 +180,29 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      A step per mode and layout is timed (median of ``MESH_REPS``, host
      clock) with the share of its fuse: M1's collectives, M2's host copies
      (its data group is one rank);
-  6. Path A, the variable-growth kernel backend: the first
-     ``TRIANGLE_DOCS`` documents of the WSJ1-like stream (cut to 18,432
-     for the tier, fleet and mesh phases) into ``Engine(B=64,
+  6. the LM serving path (:func:`lm_phase`; also alone by ``--lm-only``),
+     which launches none of the five kernels (their counts are set to 0
+     before it and must be 0 after): (a) llama3.2-3b and
+     granite-moe-3b-a800m at full width and ``LM_SHALLOW`` layers in
+     float32 with TF32 off, drawn once on the card and copied to the CPU;
+     a prefill of 2 x ``LM_PREFILL`` tokens and ``LM_DECODE`` greedy
+     decode steps on both, whose logits and K/V caches must agree within
+     ``LM_TOL`` of the CPU's largest |value|, with the greedy tokens and
+     the MoE's dropped tokens equal, and for llama prefill(t + 1)'s last
+     logits equal to decode after prefill(t) within the same tolerance;
+     (b) llama3.2-3b at full width and depth in bf16 (28 layers, 7.22 GB)
+     through ``repro_torch.launch.serve.serve_lm`` (B = 2, S = 128,
+     ``LM_STEPS`` greedy steps through the Triangle ``PagedKVCache``),
+     twice from seed 0 with the same tokens and finite logits, its median
+     ms per step beside its bound (the bytes a step must move over 3.35
+     TB/s), a profiled window of ``LM_PROFILED`` steps (the card's busy
+     time, idle share, kernels per step, no host sync) and the page
+     overhead per sequence, Triangle beside Const; (c) the same for
+     granite-moe-3b-a800m (32 layers, 7.96 GB, all 48 padded experts at
+     capacity 8 a step), which must drop no token at decode;
+  7. Path A, the variable-growth kernel backend: the first
+     ``TRIANGLE_DOCS`` documents of the WSJ1-like stream (cut to 6,144
+     for the tier, fleet, mesh and LM phases) into ``Engine(B=64,
      growth="triangle")`` (paper §5.4, no device image) through
      ``QueryService(max_batch=32, cache_size=0)`` in batches of 256, its
      bytes per posting beside the Const path's at the same document
@@ -198,7 +220,7 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      on its grid, the launch floor); then ``topk_score`` on
      seeded inputs of 9 and 40 segments over the same docids (off the
      path: a ranked query has 1-4 terms);
-  7. one JSON line listing each kernel with its launches, parity error,
+  8. one JSON line listing each kernel with its launches, parity error,
      times and bound; the card again; and as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -219,6 +241,8 @@ phase 3 does (without the split path) and runs the tier phase on it.
 ``--mesh-only`` builds only ``dvbyte_decode``, ingests the Const stream
 to its freeze and deals the fleet's documents into two host indexes, and
 runs phase 5 alone.
+``--lm-only`` builds nothing (the LM path launches no hand-written kernel)
+and runs phase 6 alone.
 ``--fused-only PT`` builds only ``fused_query`` and times it on phase 3's
 first prepared batch of 32 queries per mode, read from PT, or first
 written there from a Const engine built as phase 3 builds it (a CRC of
@@ -256,17 +280,17 @@ REPS = 20                      # timed calls of a plain version or a batch
 LAUNCHES = 20                  # back-to-back kernel launches per timed run
 RUNS = 7                       # timed runs per turn
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-TRIANGLE_DOCS = 18_432         # Path A's stream: WSJ1-like, cut (full:
-                               # 98,732) to make room for the tier, fleet
-                               # and mesh phases; a batch
+TRIANGLE_DOCS = 6_144          # Path A's stream: WSJ1-like, cut (full:
+                               # 98,732) to make room for the tier, fleet,
+                               # mesh and LM phases; a batch
                                # boundary of the Const path, which records
                                # its bytes/posting there
-FLEET_DOCS = 12_288            # the fleet phase's stream: the first 12,288
-                               # WSJ1-like documents, 6,144 a shard (a cut
+FLEET_DOCS = 8_192             # the fleet phase's stream: the first 8,192
+                               # WSJ1-like documents, 4,096 a shard (a cut
                                # of 98,732 for time: 32,768 took the run
                                # past its time budget; 24,576 until the
                                # sanitized fleet phase 4b, ~75 s, had to be
-                               # paid for)
+                               # paid for, 12,288 until the LM phase)
 TRAFFIC_EVENTS = 300           # the fleet phase's traffic schedule (cut
                                # from 1,000 for time, then from 500 for
                                # phase 4b)
@@ -275,7 +299,8 @@ SANITIZE_DOCS = 4_096          # phase 4b's stream: the first 4,096 WSJ1-like
 SANITIZE_EVERY = 1_024         # phase 4b: a background freeze per 1,024 new
                                # documents of a shard, and a serving round
                                # and traffic after every 1,024 of the stream
-SANITIZE_EVENTS = 100          # phase 4b's traffic events after each round
+SANITIZE_EVENTS = 50           # phase 4b's traffic events after each round
+                               # (cut from 100 for the LM phase)
 SEEDED_DOCS = 64               # phase 4b's seeded-inversion fleet
 CONST_DOCS = 73_728            # the Const path's stream, cut (full: 98,732):
                                # 288 batches of 256, passing
@@ -3041,6 +3066,322 @@ def kernel_shapes(dev) -> None:
         seeded_dot(f"synthetic, n={n}", n, CFG.embed_dim, dev)
 
 
+# --------------------------------------------------------------------------
+# phase 6: the LM serving path
+# --------------------------------------------------------------------------
+
+LM_ARCHS = ("llama3.2-3b", "granite-moe-3b-a800m")
+LM_SHALLOW = 2          # (a): layers of the float32 models at full width
+LM_PREFILL = 64         # (a): prefill tokens per sequence (B = 2)
+LM_DECODE = 8           # (a): greedy decode steps after the prefill
+LM_TOL = 1e-4           # (a): max |card - CPU| over max |CPU|, float32
+LM_STEPS = 32           # (b), (c): greedy decode steps through serve_lm
+LM_BATCH, LM_SEQ = 2, 128   # (b), (c): serve_lm's B and S, the reference's
+LM_PROFILED = 3         # (b), (c): decode steps under torch.profiler
+LM_LONG = 32_768        # page overheads also at decode_32k's length
+LM_DEVICE = "cuda"
+def _params_to(params: dict, device) -> dict:
+    return {"embed": params["embed"].to(device),
+            "layers": {n: w.to(device) for n, w in params["layers"].items()},
+            "ln_f": params["ln_f"].to(device),
+            "out_proj": params["out_proj"].to(device)}
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _free_card() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_against_cpu(arch_id: str) -> dict:
+    """Phase 6 (a): ``arch_id`` at full width and ``LM_SHALLOW`` layers in
+    float32, drawn once on the card and copied to the CPU; a prefill of
+    ``LM_PREFILL`` tokens per sequence and ``LM_DECODE`` greedy decode
+    steps on both.  Every logit and the final K/V caches must agree within
+    ``LM_TOL`` of the CPU's largest |value|, the greedy tokens and the
+    tokens an MoE drops at capacity must be equal; for a dense model,
+    prefill(t + 1)'s last logits must equal decode after prefill(t) on the
+    card within the same tolerance (an MoE's prefill drops tokens, so
+    they differ there as in the reference)."""
+    import torch
+    from dataclasses import replace
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lm import LM
+    t0 = time.perf_counter()
+    cfg = replace(get_arch(arch_id).cfg, n_layers=LM_SHALLOW,
+                  dtype=torch.float32)
+    card = LM(cfg, device=LM_DEVICE,
+              generator=torch.Generator(device=LM_DEVICE).manual_seed(1))
+    host = LM(cfg, device="cpu", params=_params_to(card.params(), "cpu"))
+    gb = sum(p.numel() * p.element_size() for p in card.parameters()) / 1e9
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PREFILL + 1)))
+    runs = {}
+    for name, model in (("card", card), ("cpu", host)):
+        t = toks.to(model.device)
+        drops: list = []
+        logits, cache = model.prefill(t[:, :LM_PREFILL],
+                                      max_len=LM_PREFILL + LM_DECODE,
+                                      drops=drops)
+        seen, greedy = [logits], []
+        for i in range(LM_DECODE):
+            tok = torch.argmax(logits[:, :cfg.vocab], -1)
+            greedy.append(tok)
+            logits, cache = model.decode(cache, tok, LM_PREFILL + i,
+                                         drops=drops)
+            seen.append(logits)
+        runs[name] = {"logits": torch.stack(seen).cpu(),
+                      "k": cache["k"].cpu(), "v": cache["v"].cpu(),
+                      "tokens": torch.stack(greedy).cpu(),
+                      "dropped": sum(int(d) for d in drops)}
+    c, h = runs["card"], runs["cpu"]
+    errs = {key: _rel_err(c[key], h[key]) for key in ("logits", "k", "v")}
+    if not torch.equal(c["tokens"], h["tokens"]):
+        fail(f"[lm] {arch_id}: greedy tokens on the card {c['tokens']} "
+             f"differ from the CPU's {h['tokens']}")
+    if max(errs.values()) > LM_TOL:
+        fail(f"[lm] {arch_id}: card against CPU {errs} > {LM_TOL}")
+    if c["dropped"] != h["dropped"]:
+        fail(f"[lm] {arch_id}: the card dropped {c['dropped']} tokens at "
+             f"capacity, the CPU {h['dropped']}")
+    consistency = None
+    if cfg.moe is None:
+        t = toks.to(card.device)
+        full, _ = card.prefill(t)
+        _, cache = card.prefill(t[:, :LM_PREFILL], max_len=LM_PREFILL + 1)
+        dec, _ = card.decode(cache, t[:, LM_PREFILL], LM_PREFILL)
+        consistency = _rel_err(dec, full)
+        if consistency > LM_TOL:
+            fail(f"[lm] {arch_id}: decode after prefill({LM_PREFILL}) "
+                 f"differs from prefill({LM_PREFILL + 1}) by {consistency} "
+                 f"> {LM_TOL}")
+    del card, host
+    _free_card()
+    wall = time.perf_counter() - t0
+    say(f"[lm] (a) {arch_id} at full width, {LM_SHALLOW} layers, float32 "
+        f"({gb:.3f} GB, drawn on the card, copied to the CPU; TF32 off): "
+        f"prefill {LM_BATCH} x {LM_PREFILL} and {LM_DECODE} greedy decode "
+        f"steps, card against CPU: logits {errs['logits']:.3e}, K "
+        f"{errs['k']:.3e}, V {errs['v']:.3e} of the CPU's max |value| "
+        f"(tolerance {LM_TOL}); greedy tokens equal "
+        f"{c['tokens'][:, 0].tolist()}...; (token, slot) pairs dropped at "
+        f"capacity: {c['dropped']} on both"
+        + ("" if consistency is None else
+           f"; prefill({LM_PREFILL + 1}) against decode after "
+           f"prefill({LM_PREFILL}) on the card: {consistency:.3e}")
+        + f"; {wall:.1f} s")
+    return {"errs": errs, "consistency": consistency,
+            "dropped": c["dropped"], "s": wall}
+
+
+def decode_profile(model) -> dict:
+    """Where a decode step's time goes, at serve_lm's shapes:
+    ``LM_PROFILED`` steps under ``torch.profiler`` (CPU and CUDA
+    activities), each ending in a synchronize.  Returns the wall ms per
+    step (host clock, profiler on), the device's busy ms per step (the
+    sum of the CUDA kernels' durations), its idle share, the kernels per
+    step, the five kernels that took most device time, and the host syncs
+    inside the steps (``aten::_local_scalar_dense``, ``aten::nonzero``:
+    none is allowed, the decode path must not wait for the card).  Where
+    the profiler records no device time, the busy ms is None and the
+    device time per step comes from CUDA events around each step
+    (``event_ms``: the device's time including its idle gaps)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cache = model.new_cache(LM_BATCH, LM_SEQ)
+    tok = torch.zeros(LM_BATCH, dtype=torch.int64, device=model.device)
+
+    def step():
+        model.decode(cache, tok, LM_STEPS - 1)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(LM_PROFILED):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step()
+        b.record()
+        b.synchronize()
+        events.append(a.elapsed_time(b))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILED):
+            step()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / LM_PROFILED
+    kernels, syncs = {}, {}
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if getattr(e, "device_type", None) == DeviceType.CUDA and dev > 0:
+            kernels[e.key] = (dev / 1e3 / LM_PROFILED, e.count)
+        if e.key in ("aten::_local_scalar_dense", "aten::nonzero",
+                     "aten::item"):
+            syncs[e.key] = e.count
+    if any(syncs.values()):
+        fail(f"[lm] the decode step waits for the card: {syncs}")
+    busy = sum(ms for ms, _ in kernels.values()) or None
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "idle": None if busy is None else 1 - busy / wall_ms,
+            "kernels": sum(n for _, n in kernels.values()) / LM_PROFILED,
+            "event_ms": float(np.median(events)),
+            "top": [(name[:60], ms) for name, (ms, _) in top]}
+
+
+def lm_step_bytes(model) -> int:
+    """Bytes a decode step at serve_lm's shapes must move: every layer's
+    weights (an MoE's padded experts too: the step computes each at
+    capacity) and ``ln_f``/``out_proj`` read once, the embedding rows of
+    the batch, the K/V cache read once, the logits written."""
+    cfg = model.cfg
+    esize = model.embed.element_size()
+    weights = sum(w.numel() for w in model.layers.values()) + \
+        model.ln_f.numel() + model.out_proj.numel()
+    kv = 2 * cfg.n_layers * LM_BATCH * LM_SEQ * cfg.n_kv_heads * cfg.d_head
+    rows = LM_BATCH * cfg.d_model
+    logits = LM_BATCH * cfg.vocab_padded
+    return (weights + kv + rows + logits) * esize
+
+
+def lm_serve(arch_id: str) -> dict:
+    """Phase 6 (b) and (c): ``arch_id`` at full width and full depth in
+    bf16, drawn on the card from seed 0, through ``serve_lm`` (B = 2, S =
+    128, ``LM_STEPS`` greedy steps, the Triangle ``PagedKVCache``); then
+    a profiled window of decode steps; then ``serve_lm(cfg=...)``, which
+    draws the model from the same seed itself, whose tokens must be the
+    same.  Logits must be finite, and an MoE must drop
+    no token at decode (N = 2 is within every expert's capacity)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models.lm import LM, moe_capacity
+    from repro_torch.serve import PagedKVCache
+    cfg = get_arch(arch_id).cfg
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = LM(cfg, device=LM_DEVICE,
+               generator=torch.Generator(device=LM_DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    first = serve_lm(LM_STEPS, model=model)
+    params = sum(p.numel() for p in model.parameters())
+    gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    nbytes = lm_step_bytes(model)
+    prof = decode_profile(model)
+    del model
+    _free_card()
+    second = serve_lm(LM_STEPS, cfg=cfg, device=LM_DEVICE)
+    _free_card()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    runs = (first, second)
+    if not np.array_equal(first["tokens"], second["tokens"]):
+        fail(f"[lm] {arch_id}: a second run from the same seed gave other "
+             f"tokens")
+    if not (first["finite"] and second["finite"]):
+        fail(f"[lm] {arch_id}: logits not finite")
+    if cfg.moe is not None:
+        C = moe_capacity(cfg, LM_BATCH)
+        if first["dropped"] or second["dropped"] or C < LM_BATCH:
+            fail(f"[lm] {arch_id}: {first['dropped']} / "
+                 f"{second['dropped']} tokens dropped at decode (C = {C})")
+    const = PagedKVCache(n_pages=256, page_tokens=16, policy="const")
+    for b in range(LM_BATCH):
+        const.add_sequence(b)
+        const.append_tokens(b, LM_STEPS)
+    const_ovh = [const.overhead_tokens(b) for b in range(LM_BATCH)]
+    long = {}                   # one sequence at decode_32k's length
+    for policy in ("triangle", "const"):
+        pool = PagedKVCache(n_pages=4096, page_tokens=16, policy=policy)
+        pool.add_sequence(0)
+        pool.append_tokens(0, LM_LONG)
+        long[policy] = (pool.overhead_tokens(0),
+                        len(pool.seqs[0].page_capacity))
+    steps_ms = [t * 1e3 for r in runs for t in r["step_s"][1:]]
+    ms = float(np.median(steps_ms))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    moe = ("" if cfg.moe is None else
+           f"; {cfg.moe.n_experts} experts padded to {cfg.n_experts_padded}"
+           f", top-{cfg.moe.top_k}, each at capacity "
+           f"{moe_capacity(cfg, LM_BATCH)}: no token dropped")
+    say(f"[lm] ({'b' if cfg.moe is None else 'c'}) {arch_id} at full width "
+        f"and depth, bf16: {cfg.n_layers} layers, {params / 1e6:.1f} M "
+        f"parameters, {gb:.3f} GB (drawn on the card in {init_s:.2f} s); "
+        f"serve_lm B={LM_BATCH}, S={LM_SEQ}, {LM_STEPS} greedy steps, with "
+        f"that model and with serve_lm's own draw from seed 0: tokens equal "
+        f"{first['tokens'][0, :8].tolist()}..., logits finite{moe}")
+    busy = prof["busy_ms"]
+    dev_ms = busy if busy is not None else prof["event_ms"]
+    say(f"[time] lm {arch_id} decode step: {ms:.3f} ms median on the "
+        f"host's clock (steps 2-{LM_STEPS} of both runs, each ending in a "
+        f"synchronize; step 1 {first['step_s'][0] * 1e3:.1f} / "
+        f"{second['step_s'][0] * 1e3:.1f} ms); bound {bound:.3f} ms "
+        f"({nbytes / 1e9:.3f} GB per step over 3.35 TB/s: the weights, the "
+        f"K/V cache, the logits), ms/bound {ms / bound:.2f}; peak memory "
+        f"{peak_gb:.2f} GB; {card_line()}")
+    if busy is None:
+        say(f"[time] lm {arch_id} under torch.profiler: no device time "
+            f"recorded; CUDA events around a step: {prof['event_ms']:.3f} "
+            f"ms (device time with its idle gaps)")
+    else:
+        say(f"[time] lm {arch_id} under torch.profiler ({LM_PROFILED} "
+            f"steps): {prof['wall_ms']:.3f} ms a step, the card busy "
+            f"{busy:.3f} ms of it (idle share {prof['idle']:.3f}) in "
+            f"{prof['kernels']:.0f} kernels a step, {nbytes / busy / 1e6:.0f}"
+            f" GB/s while busy, busy/bound {busy / bound:.2f}; CUDA events "
+            f"around a step {prof['event_ms']:.3f} ms; most device time: "
+            + "; ".join(f"{name} {t:.3f} ms" for name, t in prof["top"]))
+    say(f"[lm] {arch_id} page overhead per sequence after {LM_STEPS} "
+        f"tokens: Triangle {first['overhead']} tokens "
+        f"({len(first['pool'].seqs[0].page_capacity)} pages of "
+        f"{first['pool'].seqs[0].page_capacity}) against Const {const_ovh} "
+        f"({len(const.seqs[0].page_capacity)} pages of 16); at {LM_LONG} "
+        f"tokens (decode_32k's length): Triangle {long['triangle'][0]} "
+        f"tokens in {long['triangle'][1]} pages against Const "
+        f"{long['const'][0]} in {long['const'][1]}")
+    return {"ms": ms, "device_ms": dev_ms, "profile": prof,
+            "bound_ms": bound, "bytes": nbytes, "params": params,
+            "overhead": first["overhead"], "const_overhead": const_ovh,
+            "peak_gb": peak_gb}
+
+
+def lm_phase() -> dict:
+    """Phase 6, the LM serving path: (a) for each of ``LM_ARCHS``, then
+    (b) llama3.2-3b and (c) granite-moe-3b-a800m through ``serve_lm``.
+    The five kernels' counts are set to 0 before it and read after: the
+    LM path launches none of them."""
+    import importlib
+    from repro_torch.kernels import build
+    counters = {name: importlib.import_module(
+        f"repro_torch.kernels.{name}.kernel") for name in build.SOURCES}
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    out = {"parity": {a: lm_against_cpu(a) for a in LM_ARCHS},
+           "serve": {a: lm_serve(a) for a in LM_ARCHS}}
+    launched = {name: mod.launches for name, mod in counters.items()}
+    if any(launched.values()):
+        fail(f"[lm] the LM path launched {launched}")
+    out["s"] = time.perf_counter() - t0
+    say(f"[lm] phase 6 took {out['s']:.1f} s; launches of the five "
+        f"hand-written kernels during it: {launched} (the LM path's "
+        f"attention, norms, FFNs and MoE dispatch are torch ops and "
+        f"cuBLAS products; it reaches no Pallas kernel in the reference)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=CONST_DOCS,
@@ -3079,6 +3420,10 @@ def main() -> int:
                          "documents to its freeze, the fleet's documents "
                          "into two shards) and run the mesh phase alone, "
                          "and stop: no other path is driven")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="run phase 6, the LM serving path, alone (no "
+                         "kernel is built: the path launches none), and "
+                         "stop: no other path is driven")
     ap.add_argument("--fused-only", type=Path, metavar="PT",
                     help="time the fused kernel alone on the main path's "
                          "prepared batches, read from PT (written there "
@@ -3129,6 +3474,13 @@ def main() -> int:
         say(f"[card] {card_line()}")
         say("[done] --sanitize-only: no other path was driven")
         return 0
+    if args.lm_only:
+        lm_phase()
+        if "jax" in sys.modules:
+            fail("jax was imported")
+        say(f"[card] {card_line()}")
+        say("[done] --lm-only: no other path was driven")
+        return 0
     if args.mesh_only:
         build.build_all(["dvbyte_decode"])
         m2 = const_frozen(args.docs,
@@ -3173,7 +3525,8 @@ def main() -> int:
     mesh = mesh_phase(fleet, row.pop("frozen"))
     fleet_launches = fleet["launches"]
     del fleet
-    gc.collect()       # and the fleet's and the mesh's before Path A's
+    gc.collect()       # and the fleet's and the mesh's before the LM's
+    lm_phase()
     tri = triangle_path(TRIANGLE_DOCS, row["index"])
     if "jax" in sys.modules:
         fail("jax was imported")

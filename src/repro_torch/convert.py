@@ -12,6 +12,9 @@ JAX: a caller converts a JAX object's fields with ``np.asarray`` first.
 * :func:`twotower_from_jax` builds a port
   :class:`~repro_torch.models.recsys.TwoTower` holding the parameters of
   the reference's ``twotower_init`` pytree;
+* :func:`lm_from_jax` builds a port :class:`~repro_torch.models.lm.LM`
+  holding the parameters of the reference's LM ``init_params`` pytree
+  (float32 or bfloat16 leaves);
 * :func:`static_from_jax` builds a port
   :class:`~repro_torch.core.static_index.StaticIndex` from the reference's
   ``StaticIndex.to_arrays()`` output: the same compressed streams, so the
@@ -27,6 +30,7 @@ import torch
 from .core.device_index import DeltaIndex, DeviceIndex, resolve_device
 from .core.index import DynamicIndex
 from .core.static_index import StaticIndex
+from .models.lm import LM, LMConfig
 from .models.recsys import TwoTower, TwoTowerConfig
 
 _IMAGE_FIELDS = ("blocks", "term_slot", "term_nblk", "term_skip", "term_nx",
@@ -116,6 +120,38 @@ def twotower_from_jax(params: dict, cfg: TwoTowerConfig,
                 put(lin.weight, np.asarray(layer["w"]).T)
                 put(lin.bias, layer["b"])
     return model
+
+
+def _leaf(a) -> torch.Tensor:
+    """A tensor of a numpy leaf.  ``np.asarray`` of a bfloat16 JAX array is
+    an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` rejects: its
+    bits are read as uint16 and reinterpreted.  A read-only array (as
+    ``np.asarray`` of a JAX array is) is copied first."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_from_jax(params: dict, cfg: LMConfig, device=None) -> LM:
+    """An :class:`LM` computing what the reference's LM functions compute
+    with ``params``: its ``init_params`` pytree with numpy arrays as leaves
+    (``jax.tree.map(np.asarray, params)``), laid out as the port's
+    :func:`~repro_torch.models.lm.param_shapes` (the same layout).  Leaves
+    are cast to ``cfg.dtype`` (exact where they have it already).
+    ``device`` None means the card (see :func:`resolve_device`)."""
+    device = resolve_device(device)
+
+    def put(a):
+        return _leaf(a).to(device=device, dtype=cfg.dtype)
+
+    return LM(cfg, device=device, params={
+        "embed": put(params["embed"]),
+        "layers": {n: put(w) for n, w in params["layers"].items()},
+        "ln_f": put(params["ln_f"]),
+        "out_proj": put(params["out_proj"])})
 
 
 def static_from_jax(meta: dict, arrays: dict) -> StaticIndex:

@@ -1,1 +1,2 @@
-"""Synthetic corpora calibrated to the paper's collections."""
+"""Synthetic corpora calibrated to the paper's collections, and the LM
+token pipeline."""

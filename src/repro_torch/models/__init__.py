@@ -1,1 +1,2 @@
-"""Models of the port: the two-tower retriever of hybrid retrieval."""
+"""Models of the port: the two-tower retriever of hybrid retrieval and
+the transformer LM family (serving half)."""

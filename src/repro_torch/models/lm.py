@@ -1,0 +1,520 @@
+"""Transformer LM family, serving half: dense + MoE, GQA, RoPE, SwiGLU.
+
+Ported from the JAX package's ``src/repro/models/lm.py``.  One
+implementation covers the five LM architectures of ``configs/``
+(llama4-scout, granite-moe, granite-3-2b, llama3.2-3b, mistral-large).  The
+parameters keep the reference's layout: a dict with ``embed`` (Vp, D),
+``ln_f`` (D,), ``out_proj`` (D, Vp) and ``layers``, whose entries are
+stacked (L, ...).  :class:`LM` holds them as an ``nn.Module`` with
+``prefill`` and ``decode``; the functional forms (:func:`forward`,
+:func:`make_prefill_step`, :func:`make_serve_step`) take the dict, as the
+reference's do, so the tests hold each against its counterpart.
+
+What stays the reference's arithmetic:
+
+* :func:`flash_attention` is the reference's chunked running-softmax
+  algorithm in torch ops (q chunks, kv chunks, running max/denominator/
+  accumulator; the causal mask fills -1e30, the running max starts at
+  -inf, the denominator is floored at 1e-20).  Where the reference asks
+  XLA for float32 products of bf16 operands (``preferred_element_type``),
+  the operands are cast to float32 first, and the results are cast back
+  where the reference casts them.  A kv chunk that lies wholly after a q
+  chunk is skipped: in the reference's scan it adds exactly zero (its
+  scores are -1e30 below a finite running max), so the result is the same.
+* :func:`moe_ffn` is the reference's sort-based dispatch: the capacity
+  ``C = max(8, min(int(cf·N·K/E), N))`` from the static N, a stable sort by
+  expert, every padded expert computed at capacity C on zero rows, clipped
+  gathers, and the same tokens dropped.  Top-k breaks ties towards the
+  lower expert index, as ``lax.top_k`` does (a stable descending sort),
+  and the per-expert counts are a scatter-add rather than
+  ``torch.bincount``, which reads its maximum back to the host on CUDA:
+  nothing in the function waits for the card.
+* Logits keep the padded vocabulary columns; callers take
+  ``logits[:, :cfg.vocab]``.
+
+What goes: the reference's ``mesh`` argument, ``_boundary_constraint``
+and every ``constrain`` call are sharding hints, which do nothing on one
+card; ``lax.scan`` over layers and ``jax.checkpoint`` become a Python loop
+(no autograd here: the port serves).  Not ported yet: ``lm_loss`` and
+``make_train_step`` (the training slice), ``_flash_unrolled`` and the probe
+mode (``probe_layers``, ``probe_unroll``), which exist for the reference's
+HLO dry-run.
+
+The decode cache is laid out (L, B, S, KV*d_head) as in the reference.
+:func:`make_serve_step`'s step writes the new token's K and V into the
+cache it is given, in place, and returns that same cache (the reference
+returns an updated copy).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..core.device_index import resolve_device
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 128
+    moe: MoEConfig | None = None
+    rope_theta: float = 500_000.0
+    dtype: torch.dtype = torch.bfloat16
+    # execution knobs, kept so that the configs read as the reference's
+    q_chunk: int = 256
+    kv_chunk: int = 1024
+    loss_chunk: int = 512
+    microbatch: int = 1          # grad-accumulation factor (training)
+    remat: bool = True           # (training)
+    pad_multiple: int = 512      # mesh-divisibility padding (vocab, experts)
+    act_shard: str = "dmodel"    # none|seq|dmodel (the reference's meshes)
+    opt_dtype: torch.dtype = torch.float32  # AdamW moment dtype (training)
+
+    @property
+    def vocab_padded(self) -> int:
+        """Vocab rounded up to ``pad_multiple``, as the reference pads the
+        embedding for its shardings; the padded logit columns are kept."""
+        m = self.pad_multiple
+        return (self.vocab + m - 1) // m * m
+
+    @property
+    def n_experts_padded(self) -> int:
+        """Experts rounded up to 16; padded experts receive zero tokens
+        (router indices stay < n_experts)."""
+        if not self.moe:
+            return 0
+        return (self.moe.n_experts + 15) // 16 * 16
+
+    @property
+    def params_count(self) -> int:
+        D, H, KV, dh, Fd, V, L = (self.d_model, self.n_heads,
+                                  self.n_kv_heads, self.d_head, self.d_ff,
+                                  self.vocab, self.n_layers)
+        attn = D * H * dh + 2 * D * KV * dh + H * dh * D
+        if self.moe:
+            ff = self.moe.n_experts * 3 * D * Fd + D * self.moe.n_experts
+        else:
+            ff = 3 * D * Fd
+        return L * (attn + ff + 2 * D) + V * D + D * V + D
+
+    @property
+    def active_params_count(self) -> int:
+        if not self.moe:
+            return self.params_count
+        D, Fd, L = self.d_model, self.d_ff, self.n_layers
+        full = self.params_count
+        ff_all = L * self.moe.n_experts * 3 * D * Fd
+        ff_act = L * self.moe.top_k * 3 * D * Fd
+        return full - ff_all + ff_act
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+
+
+def param_shapes(cfg: LMConfig) -> dict:
+    """The parameter dict's shapes (the reference's ``params_shape``)."""
+    D, H, KV, dh, Fd, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.d_head, cfg.d_ff, cfg.n_layers)
+    layers = {"wq": (L, D, H * dh), "wk": (L, D, KV * dh),
+              "wv": (L, D, KV * dh), "wo": (L, H * dh, D),
+              "ln1": (L, D), "ln2": (L, D)}
+    if cfg.moe:
+        E, Ep = cfg.moe.n_experts, cfg.n_experts_padded
+        layers.update({"router": (L, D, E), "moe_w_gate": (L, Ep, D, Fd),
+                       "moe_w_up": (L, Ep, D, Fd),
+                       "moe_w_down": (L, Ep, Fd, D)})
+    else:
+        layers.update({"w_gate": (L, D, Fd), "w_up": (L, D, Fd),
+                       "w_down": (L, Fd, D)})
+    Vp = cfg.vocab_padded
+    return {"embed": (Vp, D), "layers": layers, "ln_f": (D,),
+            "out_proj": (D, Vp)}
+
+
+def init_params(cfg: LMConfig, device=None,
+                generator: torch.Generator | None = None) -> dict:
+    """The reference's distributions: weights N(0, 0.02²) drawn in float32
+    and cast to ``cfg.dtype``, norms at 1.  Drawn on ``device`` (None
+    means the card) from ``generator`` (a ``torch.Generator`` on that
+    device; default one seeded with 0), one layer's slice at a time, so
+    the weights never pass through host memory and the float32 draw
+    needs one slice of scratch.  The same seed gives other numbers than
+    ``jax.random``; :func:`..convert.lm_from_jax` carries the reference's
+    parameters across instead."""
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def rnd(shape):
+        out = torch.empty(shape, dtype=cfg.dtype, device=device)
+        for part in (out if len(shape) > 2 else (out,)):
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   device=device,
+                                   dtype=torch.float32).mul_(0.02))
+        return out
+
+    def ones(shape):
+        return torch.ones(shape, dtype=cfg.dtype, device=device)
+
+    shapes = param_shapes(cfg)
+    return {
+        "embed": rnd(shapes["embed"]),
+        "layers": {name: (ones if name in ("ln1", "ln2") else rnd)(shape)
+                   for name, shape in shapes["layers"].items()},
+        "ln_f": ones(shapes["ln_f"]),
+        "out_proj": rnd(shapes["out_proj"]),
+    }
+
+
+# --------------------------------------------------------------------------
+# building blocks
+# --------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """In float32, cast back to ``x.dtype``, then scaled in that dtype."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (..., S, H, dh); rotates the two halves of dh (not interleaved),
+    in float32, cast back to ``x.dtype``."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., :, None].float() * freqs          # (..., S, half)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_chunk: int,
+                    kv_chunk: int) -> torch.Tensor:
+    """q (B, S, H, dh), k/v (B, S, KV, dh) -> (B, S, H, dh): the
+    reference's chunked running softmax, GQA by grouping the query heads
+    (K/V are never repeated).  S must be a multiple of both chunks (each
+    taken as at most S), as in the reference."""
+    B, S, Hq, dh = q.shape
+    q_chunk = min(q_chunk, S)
+    kv_chunk = min(kv_chunk, k.shape[1])
+    if S % q_chunk or S % kv_chunk:
+        raise ValueError(f"sequence of {S} is not a multiple of the chunks "
+                         f"({q_chunk}, {kv_chunk})")
+    KV = k.shape[2]
+    rep = Hq // KV
+    scale = 1.0 / math.sqrt(dh)
+    nq, nk = S // q_chunk, S // kv_chunk
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        q0 = qi * q_chunk
+        qg = q[:, q0:q0 + q_chunk].reshape(B, q_chunk, KV, rep, dh).float()
+        m = torch.full((B, Hq, q_chunk), -math.inf, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, Hq, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Hq, q_chunk, dh), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            k0 = ki * kv_chunk
+            if causal and k0 > q0 + q_chunk - 1:
+                break           # wholly masked: adds exactly zero
+            kc = k[:, k0:k0 + kv_chunk].float()
+            vc = v[:, k0:k0 + kv_chunk]
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kc) * scale
+            if causal:
+                qpos = q0 + torch.arange(q_chunk, device=dev)
+                kpos = k0 + torch.arange(kv_chunk, device=dev)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s, -1e30)
+            s = s.reshape(B, Hq, q_chunk, kv_chunk)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pg = p.reshape(B, KV, rep, q_chunk, kv_chunk).to(q.dtype)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bgrqk,bkgd->bgrqd", pg.float(), vc.float()).reshape(
+                    B, Hq, q_chunk, dh)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-20)[..., None]
+        outs.append(out.transpose(1, 2).to(q.dtype))   # (B, qc, Hq, dh)
+    return torch.cat(outs, 1).reshape(B, S, Hq, dh)
+
+
+def moe_capacity(cfg: LMConfig, n_tokens: int) -> int:
+    """Rows each expert takes for ``n_tokens`` flat tokens (a Python int
+    from the static shape, as in the reference)."""
+    mc = cfg.moe
+    C = int(mc.capacity_factor * n_tokens * mc.top_k / mc.n_experts)
+    return max(8, min(C, n_tokens))
+
+
+def moe_ffn(x: torch.Tensor, lp: dict, cfg: LMConfig,
+            drops: list | None = None) -> torch.Tensor:
+    """Sort-based top-k MoE (x: (N, D) flat tokens) -> (N, D).
+
+    Expert weights hold E padded to 16; router indices never reach the
+    padded range, so padded experts process only zero rows.  Where
+    ``drops`` is a list, the number of (token, slot) pairs dropped at
+    capacity is appended to it as a 0-d tensor on x's device."""
+    mc = cfg.moe
+    E, K = mc.n_experts, mc.top_k
+    Ep = cfg.n_experts_padded
+    N, D = x.shape
+    C = moe_capacity(cfg, N)
+    dev = x.device
+    logits = (x @ lp["router"]).float()                      # (N, E)
+    probs = torch.softmax(logits, -1)
+    gates, eidx = torch.sort(probs, dim=-1, descending=True,
+                             stable=True)
+    gates, eidx = gates[:, :K], eidx[:, :K]                  # (N, K)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    flat_e = eidx.reshape(-1)                                # (N*K,)
+    # stable sort by expert; rank within expert = position - expert start
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    counts = torch.zeros(E, dtype=torch.int64, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(N * K, device=dev) - starts[sorted_e]
+    # expert e's batch is rows [starts[e], starts[e]+C) of the sorted
+    # token matrix, masked at its count
+    sorted_tok = x[order // K]
+    starts_p = torch.cat([starts, torch.full((Ep - E,), N * K,
+                                             dtype=torch.int64, device=dev)])
+    arange_c = torch.arange(C, device=dev)
+    take = starts_p[:, None] + arange_c[None, :]             # (Ep, C)
+    counts_p = torch.cat([counts, torch.zeros(Ep - E, dtype=torch.int64,
+                                              device=dev)])
+    valid = arange_c[None, :] < torch.clamp(counts_p, max=C)[:, None]
+    h = sorted_tok[torch.clamp(take, 0, N * K - 1)] * valid[..., None]
+    a = torch.einsum("ecd,edf->ecf", h, lp["moe_w_gate"])
+    b = torch.einsum("ecd,edf->ecf", h, lp["moe_w_up"])
+    hh = F.silu(a) * b
+    out_e = torch.einsum("ecf,efd->ecd", hh, lp["moe_w_down"])
+    flat_out = out_e.reshape(Ep * C, D)
+    # combine: token (n, k) sits at sorted position inv[nk] with expert
+    # rank rank[inv[nk]]; capacity-dropped tokens contribute zero
+    inv = torch.argsort(order, stable=True)
+    r_tok = rank[inv]
+    kept = r_tok < C
+    if drops is not None:
+        drops.append((~kept).sum())
+    src = torch.clamp(flat_e * C + torch.clamp(r_tok, max=C - 1), 0,
+                      Ep * C - 1)
+    per_k = flat_out[src] * kept[:, None].to(x.dtype)
+    return (per_k.reshape(N, K, D) * gates[..., None].to(x.dtype)).sum(1)
+
+
+def dense_ffn(x: torch.Tensor, lp: dict) -> torch.Tensor:
+    return (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
+
+
+def _layer(layers: dict, i: int) -> dict:
+    return {name: w[i] for name, w in layers.items()}
+
+
+def _ffn(h2: torch.Tensor, lp: dict, cfg: LMConfig, drops) -> torch.Tensor:
+    if not cfg.moe:
+        return dense_ffn(h2, lp)
+    D = cfg.d_model
+    return moe_ffn(h2.reshape(-1, D), lp, cfg, drops).reshape(h2.shape)
+
+
+# --------------------------------------------------------------------------
+# forward / serve steps
+# --------------------------------------------------------------------------
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+            return_kv: bool = False, drops: list | None = None):
+    """tokens (B, S) -> final hidden (B, S, D) [+ per-layer KV cache, a
+    dict of (L, B, S, KV*dh) tensors]."""
+    B, S = tokens.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    x = params["embed"][tokens]
+    positions = torch.arange(S, device=tokens.device)[None, :]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h = rmsnorm(x, lp["ln1"])
+        q = (h @ lp["wq"]).reshape(B, S, H, dh)
+        k = (h @ lp["wk"]).reshape(B, S, KV, dh)
+        v = (h @ lp["wv"]).reshape(B, S, KV, dh)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        att = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                              kv_chunk=cfg.kv_chunk)
+        x = x + att.reshape(B, S, H * dh) @ lp["wo"]
+        x = x + _ffn(rmsnorm(x, lp["ln2"]), lp, cfg, drops)
+        if return_kv:
+            ks.append(k.reshape(B, S, KV * dh))
+            vs.append(v.reshape(B, S, KV * dh))
+    out = rmsnorm(x, params["ln_f"])
+    if return_kv:
+        return out, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return out
+
+
+def make_prefill_step(cfg: LMConfig):
+    """prefill_step(params, tokens) -> (last-token logits, KV cache)."""
+
+    def prefill_step(params, tokens, drops=None):
+        hidden, cache = forward(params, tokens, cfg, return_kv=True,
+                                drops=drops)
+        return hidden[:, -1] @ params["out_proj"], cache
+
+    return prefill_step
+
+
+def make_serve_step(cfg: LMConfig):
+    """Returns serve_step(params, cache, token, pos) -> (logits, cache).
+
+    cache: dict(k=(L, B, S, KV*dh), v=(L, B, S, KV*dh)); one new token per
+    sequence (token: (B,)) is written at position ``pos`` (a Python int
+    below S) in place and attends to positions 0..pos."""
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    rep = H // KV
+
+    def serve_step(params, cache, token, pos: int, drops=None):
+        B = token.shape[0]
+        S = cache["k"].shape[2]
+        if not 0 <= pos < S:
+            raise ValueError(f"position {pos} outside a cache of {S}")
+        dev = token.device
+        x = params["embed"][token][:, None, :]              # (B, 1, D)
+        positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
+        smask = torch.arange(S, device=dev) <= pos
+        for li in range(cfg.n_layers):
+            lp = _layer(params["layers"], li)
+            kc, vc = cache["k"][li], cache["v"][li]         # (B, S, KV*dh)
+            h = rmsnorm(x, lp["ln1"])
+            q = (h @ lp["wq"]).reshape(B, 1, H, dh)
+            k = (h @ lp["wk"]).reshape(B, 1, KV, dh)
+            v = (h @ lp["wv"]).reshape(B, 1, KV, dh)
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+            kc[:, pos] = k.reshape(B, KV * dh)
+            vc[:, pos] = v.reshape(B, KV * dh)
+            kk = kc.reshape(B, S, KV, dh)
+            vv = vc.reshape(B, S, KV, dh)
+            qg = q.reshape(B, KV, rep, dh)
+            s = torch.einsum("bgrd,bsgd->bgrs", qg.float(), kk.float())
+            s = s / math.sqrt(dh)
+            s = torch.where(smask, s, -1e30)
+            p = torch.softmax(s, -1).to(x.dtype)
+            att = torch.einsum("bgrs,bsgd->bgrd", p, vv)
+            x = x + att.reshape(B, 1, H * dh) @ lp["wo"]
+            x = x + _ffn(rmsnorm(x, lp["ln2"]), lp, cfg, drops)
+        logits = rmsnorm(x, params["ln_f"]) @ params["out_proj"]
+        return logits[:, 0], cache
+
+    return serve_step
+
+
+def make_cache_shape(cfg: LMConfig, batch: int, seq: int) -> dict:
+    """The decode cache's shape and dtype, as ``meta`` tensors (the
+    counterpart of the reference's ``ShapeDtypeStruct``s)."""
+    sh = (cfg.n_layers, batch, seq, cfg.n_kv_heads * cfg.d_head)
+    return {name: torch.empty(sh, dtype=cfg.dtype, device="meta")
+            for name in ("k", "v")}
+
+
+class LM(nn.Module):
+    """The LM's parameters on one device, with ``prefill`` and ``decode``.
+
+    ``device`` None means the card (raises without CUDA).  ``params``, a
+    dict laid out as :func:`param_shapes` says, is adopted as it is;
+    otherwise :func:`init_params` draws one from ``generator``.  The
+    parameters do not require grad: the port serves."""
+
+    def __init__(self, cfg: LMConfig, device=None,
+                 generator: torch.Generator | None = None,
+                 params: dict | None = None):
+        super().__init__()
+        device = resolve_device(device)
+        if params is None:
+            params = init_params(cfg, device, generator)
+        shapes = param_shapes(cfg)
+        got = {"embed": tuple(params["embed"].shape),
+               "layers": {n: tuple(w.shape)
+                          for n, w in params["layers"].items()},
+               "ln_f": tuple(params["ln_f"].shape),
+               "out_proj": tuple(params["out_proj"].shape)}
+        if got != shapes:
+            raise ValueError(f"parameters of shapes {got}, the config "
+                             f"needs {shapes}")
+
+        def param(t):
+            return nn.Parameter(t.to(device=device, dtype=cfg.dtype),
+                                requires_grad=False)
+
+        self.cfg = cfg
+        self.embed = param(params["embed"])
+        self.layers = nn.ParameterDict(
+            {n: param(w) for n, w in params["layers"].items()})
+        self.ln_f = param(params["ln_f"])
+        self.out_proj = param(params["out_proj"])
+        self._prefill = make_prefill_step(cfg)
+        self._serve = make_serve_step(cfg)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def params(self) -> dict:
+        """The parameter dict the functional forms take (no copies)."""
+        return {"embed": self.embed, "layers": dict(self.layers),
+                "ln_f": self.ln_f, "out_proj": self.out_proj}
+
+    def new_cache(self, batch: int, seq: int) -> dict:
+        """A zeroed decode cache of ``seq`` positions on the device."""
+        return {name: torch.zeros_like(t, device=self.device)
+                for name, t in make_cache_shape(self.cfg, batch,
+                                                seq).items()}
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: int | None = None,
+                drops: list | None = None):
+        """Last-token logits (B, Vp) and the KV cache of ``tokens`` (B, S),
+        the cache padded with zeros to ``max_len`` positions (default S)
+        so that :meth:`decode` can go on from position S."""
+        logits, cache = self._prefill(self.params(), tokens, drops)
+        S = tokens.shape[1]
+        if max_len is not None and max_len > S:
+            cache = {n: F.pad(c, (0, 0, 0, max_len - S))
+                     for n, c in cache.items()}
+        return logits, cache
+
+    @torch.no_grad()
+    def decode(self, cache: dict, token: torch.Tensor, pos: int,
+               drops: list | None = None):
+        """One greedy step's logits (B, Vp); ``cache`` is written at
+        ``pos`` in place and returned."""
+        return self._serve(self.params(), cache, token, pos, drops)

@@ -1,6 +1,7 @@
-"""Serving front door: request batching, the pipelined write path, and
-the traffic harness."""
+"""Serving front door: request batching, the pipelined write path, the
+traffic harness, and the paged KV cache's control plane."""
 
+from .kv_cache import PagedKVCache, triangle_page_schedule  # noqa: F401
 from .query_service import QueryService, Ticket  # noqa: F401
 from .traffic import (  # noqa: F401
     FakeClock,
