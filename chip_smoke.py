@@ -18,6 +18,8 @@
                                            # the ingest its layouts need
     python3 chip_smoke.py --lm-only        # the LM serving path (phase
                                            # 6) alone, ~1 min
+    python3 chip_smoke.py --train-only     # the LM training path (phase
+                                           # 7) alone, ~2 min
 
 Phases, each printing its own lines; the first failed check exits non-zero:
 
@@ -200,7 +202,28 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      overhead per sequence, Triangle beside Const; (c) the same for
      granite-moe-3b-a800m (32 layers, 7.96 GB, all 48 padded experts at
      capacity 8 a step), which must drop no token at decode;
-  7. Path A, the variable-growth kernel backend: the first
+  7. the LM training path (:func:`train_phase`; also alone by
+     ``--train-only``), which launches none of the five kernels either:
+     (a) llama3.2-3b and granite-moe-3b-a800m at full width and
+     ``TRAIN_SHALLOW`` layers in float32 with TF32 off, drawn once on the
+     card and copied to the CPU; one ``make_train_step`` step at B = 2, S
+     = 64 on both: the loss and gnorm within ``TRAIN_TOL``, each gradient
+     leaf within ``TRAIN_GRAD_TOL`` of its max |g|, an MoE's dropped
+     tokens equal, and one AdamW update from the same gradients within
+     ``TRAIN_OPT_TOL``; (b) llama3.2-3b at full width and depth in bf16
+     (remat, microbatch 2) through ``repro_torch.launch.train.train_lm``
+     and the Trainer: ``TRAIN_STEPS`` AdamW steps of 4 x 2,048 tokens
+     (train_4k's batch cut to 4 and its sequence of 4,096 halved for the
+     run's time) on one batch repeated,
+     every loss finite and applied, the last below the first; ms per step
+     against the compute bound, tokens/s, peak memory, and one step under
+     ``torch.profiler`` (busy ms, idle share, kernels); (c) a resume:
+     llama3.2-3b at full width and ``TRAIN_SHALLOW`` layers with bf16
+     weights and moments, 6 steps straight against 3 steps with async
+     checkpoints and 3 more from a new run on freshly drawn parameters
+     that restores the checkpoint: parameters, moments and the resumed
+     losses bit-identical; the saves and the restore timed;
+  8. Path A, the variable-growth kernel backend: the first
      ``TRIANGLE_DOCS`` documents of the WSJ1-like stream (cut to 6,144
      for the tier, fleet, mesh and LM phases) into ``Engine(B=64,
      growth="triangle")`` (paper §5.4, no device image) through
@@ -220,7 +243,7 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      on its grid, the launch floor); then ``topk_score`` on
      seeded inputs of 9 and 40 segments over the same docids (off the
      path: a ranked query has 1-4 terms);
-  8. one JSON line listing each kernel with its launches, parity error,
+  9. one JSON line listing each kernel with its launches, parity error,
      times and bound; the card again; and as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -242,7 +265,8 @@ phase 3 does (without the split path) and runs the tier phase on it.
 to its freeze and deals the fleet's documents into two host indexes, and
 runs phase 5 alone.
 ``--lm-only`` builds nothing (the LM path launches no hand-written kernel)
-and runs phase 6 alone.
+and runs phase 6 alone; ``--train-only`` builds nothing and runs phase 7
+alone.
 ``--fused-only PT`` builds only ``fused_query`` and times it on phase 3's
 first prepared batch of 32 queries per mode, read from PT, or first
 written there from a Const engine built as phase 3 builds it (a CRC of
@@ -3382,6 +3406,434 @@ def lm_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 7: the LM training path
+# --------------------------------------------------------------------------
+
+TRAIN_ARCHS = LM_ARCHS  # (a): card against CPU, at full width
+TRAIN_SHALLOW = 2       # (a), (c): layers at full width
+TRAIN_AB = (2, 64)      # (a): B x S of the one step, float32
+TRAIN_TOL = 1e-5        # (a): loss and gnorm, card against CPU, relative
+TRAIN_GRAD_TOL = 1e-4   # (a): each leaf's max |difference| / its max |g|
+TRAIN_OPT_TOL = 1e-6    # (a): AdamW from the same gradients, per leaf
+TRAIN_BATCH = 4         # (b): train_4k's batch of 256, cut to one card's 4
+TRAIN_SEQ = 2048        # (b): train_4k's sequence (configs/common.py) of
+#                         4,096, halved for the run's time: 4 x 4,096 fits
+#                         (53.1 GB peak) but took 6.0 s a step, and the
+#                         default run passed 800 s on a slow host
+TRAIN_STEPS = 6         # (b), (c): steps of the straight runs
+TRAIN_PEAK_LR = 3e-4    # (b), (c): cosine_schedule's peak ...
+TRAIN_WARMUP = 2        # ... and warmup steps, over TRAIN_STEPS
+RESUME_AB = (4, 512)    # (c): B x S of each step
+RESUME_EVERY = 2        # (c): ckpt_every of the interrupted run
+TRAIN_DEVICE = "cuda"
+BF16_FLOPS = 989e12     # H100 SXM, dense bf16
+
+
+def _grad_capture(store: dict):
+    """An optimizer_update for make_train_step that keeps the gradients
+    and changes nothing."""
+    from repro_torch.optim.adamw import global_norm
+
+    def update(p, g, s):
+        store["grads"] = g
+        return p, s, global_norm(g)
+    return update
+
+
+def _leaf_err(got, want) -> float:
+    """max |got - want| over max |want| (0 where both are all zero),
+    computed on got's device."""
+    got, want = got.float(), want.to(got.device).float()
+    top = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    return diff / top if top else (0.0 if diff == 0 else float("inf"))
+
+
+def _host_gb(*trees) -> float:
+    from repro_torch import tree
+    return sum(t.numel() * t.element_size() for t in tree.leaves(trees)
+               if t.device.type == "cpu") / 1e9
+
+
+def _lr(step):
+    from repro_torch.optim import cosine_schedule
+    return cosine_schedule(step, TRAIN_PEAK_LR, TRAIN_WARMUP, TRAIN_STEPS)
+
+
+def train_against_cpu(arch_id: str) -> dict:
+    """Phase 7 (a): ``arch_id`` at full width, ``TRAIN_SHALLOW`` layers, in
+    float32 (TF32 off), drawn once on the card and copied to the CPU; one
+    ``make_train_step`` step of the config's microbatches at ``TRAIN_AB``
+    from ``TokenBatches`` on both, its gradients kept.  The loss and the
+    gnorm must agree within ``TRAIN_TOL``, each leaf's gradient within
+    ``TRAIN_GRAD_TOL`` of that leaf's max |g|, and an MoE's forward over
+    the same microbatches must drop the same (token, slot) pairs at
+    capacity.  Then one AdamW update from the CPU's gradients on both:
+    parameters and moments within ``TRAIN_OPT_TOL`` of each leaf's max
+    |value|.  The updated parameters of two gradient computations are
+    never compared: an element whose gradient is near 0 may flip its sign
+    at step 1 (AdamW's m/sqrt(v) is +-1) and then differs by 2 lr."""
+    import torch
+    from dataclasses import replace
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenBatches
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.optim import adamw_init, adamw_update
+    t0 = time.perf_counter()
+    cfg = replace(get_arch(arch_id).cfg, n_layers=TRAIN_SHALLOW,
+                  dtype=torch.float32)
+    B, S = TRAIN_AB
+    card = lm_mod.init_params(
+        cfg, TRAIN_DEVICE,
+        torch.Generator(device=TRAIN_DEVICE).manual_seed(1))
+    host = _params_to(card, "cpu")
+    batch = TokenBatches(cfg.vocab, B, S).batch_at(0)
+    runs, secs = {}, {}
+    for name, params in (("card", card), ("cpu", host)):
+        dev = params["embed"].device
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        store: dict = {}
+        step = lm_mod.make_train_step(cfg, _grad_capture(store))
+        ts = time.perf_counter()
+        _, _, loss, gnorm = step(params, None, b)
+        secs[f"{name} step"] = time.perf_counter() - ts
+        drops: list = []
+        sz = B // cfg.microbatch
+        with torch.no_grad():
+            for i in range(cfg.microbatch if cfg.moe else 0):
+                lm_mod.forward(params, b["tokens"][i * sz:(i + 1) * sz],
+                               cfg, drops=drops)
+        runs[name] = {"loss": float(loss), "gnorm": float(gnorm),
+                      "grads": store["grads"],
+                      "dropped": sum(int(d) for d in drops)}
+    c, h = runs["card"], runs["cpu"]
+    loss_err = abs(c["loss"] - h["loss"]) / abs(h["loss"])
+    gnorm_err = abs(c["gnorm"] - h["gnorm"]) / abs(h["gnorm"])
+    grads = h["grads"]                  # the CPU's, on the card too
+    grads_card = tree.tree_map(lambda t: t.to(TRAIN_DEVICE), grads)
+    grad_errs = [_leaf_err(g, w) for g, w in
+                 zip(tree.leaves(c["grads"]), tree.leaves(grads_card))]
+    dropped = c["dropped"]
+    if max(loss_err, gnorm_err) > TRAIN_TOL:
+        fail(f"[train] {arch_id}: loss {c['loss']} / {h['loss']}, gnorm "
+             f"{c['gnorm']} / {h['gnorm']} on the card / the CPU, beyond "
+             f"{TRAIN_TOL}")
+    if max(grad_errs) > TRAIN_GRAD_TOL:
+        fail(f"[train] {arch_id}: gradient leaves card against CPU "
+             f"{grad_errs} > {TRAIN_GRAD_TOL} of each leaf's max |g|")
+    if c["dropped"] != h["dropped"]:
+        fail(f"[train] {arch_id}: the card dropped {c['dropped']} tokens at "
+             f"capacity, the CPU {h['dropped']}")
+    # the optimizer alone, fed the CPU's gradients on both
+    del runs, c, h
+    out = {}
+    for name, params, g in (("card", card, grads_card),
+                            ("cpu", host, grads)):
+        ts = time.perf_counter()
+        state = adamw_init(params)
+        adamw_update(params, g, state, TRAIN_PEAK_LR)
+        float(state.step)
+        secs[f"{name} AdamW"] = time.perf_counter() - ts
+        out[name] = (params, state)
+    host_gb = _host_gb(host, grads, out["cpu"][1])
+    opt_errs = [_leaf_err(a, b) for a, b in
+                zip(tree.leaves(out["card"]), tree.leaves(out["cpu"]))]
+    if max(opt_errs) > TRAIN_OPT_TOL:
+        fail(f"[train] {arch_id}: one AdamW update from the same gradients, "
+             f"card against CPU {opt_errs} > {TRAIN_OPT_TOL}")
+    del card, host, grads, grads_card, out
+    _free_card()
+    wall = time.perf_counter() - t0
+    say(f"[train] (a) {arch_id} at full width, {TRAIN_SHALLOW} layers, "
+        f"float32 (drawn on the card, copied to the CPU; TF32 off): one "
+        f"make_train_step step at B={B}, S={S} in {cfg.microbatch} "
+        f"microbatches, card against CPU: loss {loss_err:.3e}, gnorm "
+        f"{gnorm_err:.3e} (tolerance {TRAIN_TOL}); the "
+        f"{len(grad_errs)} gradient leaves within {max(grad_errs):.3e} of "
+        f"each leaf's max |g| (tolerance {TRAIN_GRAD_TOL}); (token, slot) "
+        f"pairs dropped at capacity: {dropped} on both; one AdamW update "
+        f"from the same gradients: parameters and moments within "
+        f"{max(opt_errs):.3e} (tolerance {TRAIN_OPT_TOL}); host memory "
+        f"held {host_gb:.1f} GB; {wall:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
+    return {"loss": loss_err, "gnorm": gnorm_err, "grad": max(grad_errs),
+            "opt": max(opt_errs), "dropped": dropped, "host_gb": host_gb,
+            "s": wall}
+
+
+class _OneBatch:
+    """``batch_at`` that gives batch 0 at every step (phase 7 (b))."""
+
+    def __init__(self, data):
+        self.batch = data.batch_at(0)
+
+    def batch_at(self, step):
+        return self.batch
+
+
+def train_profile(step) -> dict:
+    """One more train step under ``torch.profiler`` with the CUDA activity
+    alone (a step launches ~145,000 kernels; recording its CPU ops too
+    doubled the step and took minutes to summarise), ending in a
+    synchronize: its wall ms on the host's clock (profiler on), the
+    card's busy ms (the durations of its kernels, copies and fills
+    summed: one stream, so none overlap), their count, and the five
+    kernels with most device time.  Where the profiler records no device
+    time, the busy ms is None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ts = time.perf_counter()
+    kernels: dict = {}
+    # the raw device events: key_averages() builds a Python object per
+    # event and took 30 s over a step's
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            k = kernels.setdefault(e.name(), [0.0, 0])
+            k[0] += e.duration_ns() / 1e6
+            k[1] += 1
+    busy = sum(ms for ms, _ in kernels.values()) or None
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "kernels": sum(n for _, n in kernels.values()),
+            "summary_s": time.perf_counter() - ts,
+            "top": [(name[:60], ms) for name, (ms, _) in top]}
+
+
+def train_flops(cfg, tokens: int) -> tuple[float, int]:
+    """(6 N T, N): N the parameters a token's products use, the layers'
+    and ``out_proj``'s (the embedding is a gather); attention's own
+    products (the scores and the weighted sum) are not in it."""
+    D, H, KV, dh, Fd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.d_head, cfg.d_ff)
+    layer = D * H * dh + 2 * D * KV * dh + H * dh * D + 3 * D * Fd + 2 * D
+    n = cfg.n_layers * layer + D * cfg.vocab_padded + D
+    return 6.0 * n * tokens, n
+
+
+def train_full() -> dict:
+    """Phase 7 (b): llama3.2-3b at full width and depth in bf16 (the
+    config's microbatch 2, remat, q_chunk 512, kv_chunk 1,024, loss_chunk
+    512) through ``launch.train.train_lm`` and the Trainer without
+    checkpoints: ``TRAIN_STEPS`` AdamW steps (moments float32, the cosine
+    schedule) on one ``TokenBatches`` batch of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` repeated.  Every loss and gnorm finite, no step skipped
+    (the step counter reads ``TRAIN_STEPS``), the last loss below the
+    first.  Then one more step under the profiler."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenBatches
+    from repro_torch.launch.train import train_lm
+    cfg = get_arch("llama3.2-3b").cfg
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train_lm(cfg, TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                   device=TRAIN_DEVICE, lr=_lr, log_every=0,
+                   data=_OneBatch(TokenBatches(cfg.vocab, TRAIN_BATCH,
+                                               TRAIN_SEQ)))
+    wall = time.perf_counter() - t0
+    trainer = run["trainer"]
+    m = trainer.metrics
+    losses = [x["loss"] for x in m]
+    gnorms = [x["gnorm"] for x in m]
+    if not all(np.isfinite(losses + gnorms)):
+        fail(f"[train] (b) losses {losses}, gnorms {gnorms}: not finite")
+    if int(trainer.opt_state.step) != TRAIN_STEPS:
+        fail(f"[train] (b) {int(trainer.opt_state.step)} of {TRAIN_STEPS} "
+             f"steps were applied")
+    if not losses[-1] < losses[0]:
+        fail(f"[train] (b) the loss did not fall: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params = sum(t.numel() for t in trainer.params["layers"].values()) + \
+        sum(trainer.params[k].numel() for k in ("embed", "ln_f",
+                                                "out_proj"))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops, n = train_flops(cfg, tokens)
+    bound_ms = flops / BF16_FLOPS * 1e3
+    ms = float(np.median([x["sec"] for x in m[1:]])) * 1e3
+    batch = {k: torch.from_numpy(v).to(TRAIN_DEVICE) for k, v in
+             TokenBatches(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ)
+             .batch_at(0).items()}
+    prof = train_profile(lambda: trainer.train_step(
+        trainer.params, trainer.opt_state, batch))
+    del trainer, run
+    _free_card()
+    say(f"[train] (b) llama3.2-3b at full width and depth, bf16 "
+        f"({cfg.n_layers} layers, {params / 1e6:.1f} M parameters, AdamW "
+        f"moments float32), remat, microbatch {cfg.microbatch}, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step (train_4k's batch of "
+        f"256 cut to 4, its sequence of 4,096 to {TRAIN_SEQ}) on one batch "
+        f"repeated, "
+        f"cosine_schedule(peak {TRAIN_PEAK_LR}, warmup {TRAIN_WARMUP}, "
+        f"total {TRAIN_STEPS}), {TRAIN_STEPS} steps through train_lm and "
+        f"the Trainer: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; gnorms "
+        + ", ".join(f"{x:.3f}" for x in gnorms)
+        + f"; every step applied; {wall:.1f} s with the draw")
+    busy = prof["busy_ms"]
+    idle = None if busy is None else 1 - busy / ms
+    say(f"[time] train llama3.2-3b step: {ms:.1f} ms median of steps "
+        f"2-{TRAIN_STEPS} on the host's clock (each ending in a "
+        f"synchronize; step 1 {m[0]['sec'] * 1e3:.1f} ms), "
+        f"{tokens / ms * 1e3:.0f} tokens/s; compute bound {bound_ms:.1f} ms "
+        f"(6 x {n / 1e9:.3f} G parameters x {tokens} tokens over 989 "
+        f"TFLOP/s, attention's products not counted), ms/bound "
+        f"{ms / bound_ms:.2f}; peak memory {peak_gb:.2f} GB; {card_line()}")
+    if busy is None:
+        say(f"[time] train llama3.2-3b under torch.profiler: no device "
+            f"time recorded; {prof['wall_ms']:.1f} ms a step")
+    else:
+        say(f"[time] train llama3.2-3b under torch.profiler (one step, "
+            f"CUDA activity): {prof['wall_ms']:.1f} ms, the card busy "
+            f"{busy:.1f} ms in {prof['kernels']} kernels: idle share "
+            f"{idle:.3f} of the unprofiled step's {ms:.1f} ms "
+            f"({1 - busy / prof['wall_ms']:.3f} of the profiled one), "
+            f"busy/bound {busy / bound_ms:.2f}; summarised in "
+            f"{prof['summary_s']:.1f} s; most device time: "
+            + "; ".join(f"{name} {t:.1f} ms" for name, t in prof["top"]))
+    return {"ms": ms, "bound_ms": bound_ms, "losses": losses,
+            "gnorms": gnorms, "peak_gb": peak_gb, "profile": prof,
+            "idle": idle, "s": wall}
+
+
+def train_resume() -> dict:
+    """Phase 7 (c): llama3.2-3b at full width, ``TRAIN_SHALLOW`` layers,
+    bf16 weights and bf16 moments (``opt_dtype``, the reference's
+    PaLM-style option), ``RESUME_AB`` a step from ``TokenBatches``.
+    ``TRAIN_STEPS`` steps straight; then half of them with an async
+    checkpoint every ``RESUME_EVERY`` steps and the final blocking save,
+    and a new run from freshly drawn parameters (another seed) on the same
+    directory, which must resume at the next step and run to the end.
+    Parameters, moments and the step counter must equal the straight
+    run's bit for bit, and so must the resumed steps' losses.  The saves
+    (the caller's part: the host copy, and the write where blocking) and
+    the restore are timed."""
+    import torch
+    from dataclasses import replace
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train_lm
+    cfg = replace(get_arch("llama3.2-3b").cfg, n_layers=TRAIN_SHALLOW,
+                  opt_dtype=torch.bfloat16)
+    B, S = RESUME_AB
+    half = TRAIN_STEPS // 2
+    kw = dict(batch=B, seq=S, device=TRAIN_DEVICE, lr=_lr, log_every=0)
+    t0 = time.perf_counter()
+    straight = train_lm(cfg, TRAIN_STEPS, **kw)["trainer"]
+    want = [t.cpu() for t in tree.leaves((straight.params,
+                                          straight.opt_state))]
+    losses = [x["loss"] for x in straight.metrics]
+    del straight
+    _free_card()
+    folder = Path(tempfile.mkdtemp(prefix="train-resume-"))
+    times = {"save": [], "restore": []}
+    save, restore = CheckpointManager.save, CheckpointManager.restore
+
+    def timed_save(self, *a, **k):
+        ts = time.perf_counter()
+        save(self, *a, **k)
+        times["save"].append(time.perf_counter() - ts)
+
+    def timed_restore(self, *a, **k):
+        ts = time.perf_counter()
+        out = restore(self, *a, **k)
+        torch.cuda.synchronize()
+        times["restore"].append(time.perf_counter() - ts)
+        return out
+
+    CheckpointManager.save, CheckpointManager.restore = \
+        timed_save, timed_restore
+    try:
+        free_gb = shutil.disk_usage(folder).free / 1e9
+        first = train_lm(cfg, half, ckpt_dir=str(folder),
+                         ckpt_every=RESUME_EVERY, **kw)["trainer"]
+        saved = first.ckpt.all_steps()
+        del first
+        _free_card()
+        lines: list = []
+        second = train_lm(cfg, TRAIN_STEPS - half, ckpt_dir=str(folder),
+                          ckpt_every=RESUME_EVERY, seed=2,
+                          log_fn=lines.append, **kw)["trainer"]
+        second.ckpt.wait()
+        ckpt_gb = sum(f.stat().st_size for f in
+                      (folder / f"step-{saved[-1]:010d}").iterdir()) / 1e9
+    finally:
+        CheckpointManager.save, CheckpointManager.restore = save, restore
+        shutil.rmtree(folder, ignore_errors=True)
+    got = [t.cpu() for t in tree.leaves((second.params, second.opt_state))]
+    resumed = [x["loss"] for x in second.metrics]
+    wall = time.perf_counter() - t0
+    if saved != [half - 1] or lines[:1] != [f"[trainer] resumed from step "
+                                           f"{half - 1}"]:
+        fail(f"[train] (c) checkpoints {saved}, log {lines[:1]}: the run "
+             f"did not resume at step {half}")
+    if [x["step"] for x in second.metrics] != list(range(half,
+                                                         TRAIN_STEPS)):
+        fail(f"[train] (c) the resumed run took steps "
+             f"{[x['step'] for x in second.metrics]}")
+    same = [torch.equal(a, b) for a, b in zip(got, want)]
+    if not all(same) or len(got) != len(want):
+        fail(f"[train] (c) the resumed parameters and moments differ from "
+             f"the straight run's: {same.count(False)} of {len(same)} "
+             f"leaves")
+    if resumed != losses[half:]:
+        fail(f"[train] (c) resumed losses {resumed} differ from the "
+             f"straight run's {losses[half:]}")
+    del second
+    _free_card()
+    say(f"[train] (c) llama3.2-3b at full width, {TRAIN_SHALLOW} layers, "
+        f"bf16 weights and moments, {B} x {S} tokens a step: "
+        f"{TRAIN_STEPS} steps straight against {half} steps (async "
+        f"checkpoint every {RESUME_EVERY}, {ckpt_gb:.2f} GB each, "
+        f"{free_gb:.0f} GB free there) and a new run from another draw that "
+        f"resumed at step {half}: the {len(got)} leaves (parameters, "
+        f"moments, the step counter) bit-identical, losses of steps "
+        f"{half}-{TRAIN_STEPS - 1} equal ("
+        + ", ".join(f"{x:.4f}" for x in resumed) + f"); {wall:.1f} s")
+    say(f"[time] train checkpoint of {ckpt_gb:.2f} GB: saves "
+        + ", ".join(f"{x:.2f}" for x in times["save"])
+        + " s on the caller's thread (the host copy; the write too where "
+        f"blocking), restore " + ", ".join(f"{x:.2f}" for x in
+                                          times["restore"])
+        + f" s; {card_line()}")
+    return {"save_s": times["save"], "restore_s": times["restore"],
+            "ckpt_gb": ckpt_gb, "s": wall}
+
+
+def train_phase() -> dict:
+    """Phase 7, the LM training path: (a) for each of ``TRAIN_ARCHS``, (b)
+    llama3.2-3b at full width and depth, (c) the bit-identical resume.
+    The five kernels' counts are set to 0 before it and read after: the
+    training path launches none of them."""
+    import importlib
+    from repro_torch.kernels import build
+    counters = {name: importlib.import_module(
+        f"repro_torch.kernels.{name}.kernel") for name in build.SOURCES}
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    out = {"parity": {a: train_against_cpu(a) for a in TRAIN_ARCHS},
+           "full": train_full(), "resume": train_resume()}
+    launched = {name: mod.launches for name, mod in counters.items()}
+    if any(launched.values()):
+        fail(f"[train] the training path launched {launched}")
+    out["s"] = time.perf_counter() - t0
+    say(f"[train] phase 7 took {out['s']:.1f} s; launches of the five "
+        f"hand-written kernels during it: {launched} (the training path's "
+        f"attention, norms, loss and AdamW are torch ops and cuBLAS "
+        f"products; it reaches no Pallas kernel in the reference)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=CONST_DOCS,
@@ -3422,6 +3874,10 @@ def main() -> int:
                          "and stop: no other path is driven")
     ap.add_argument("--lm-only", action="store_true",
                     help="run phase 6, the LM serving path, alone (no "
+                         "kernel is built: the path launches none), and "
+                         "stop: no other path is driven")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run phase 7, the LM training path, alone (no "
                          "kernel is built: the path launches none), and "
                          "stop: no other path is driven")
     ap.add_argument("--fused-only", type=Path, metavar="PT",
@@ -3481,6 +3937,13 @@ def main() -> int:
         say(f"[card] {card_line()}")
         say("[done] --lm-only: no other path was driven")
         return 0
+    if args.train_only:
+        train_phase()
+        if "jax" in sys.modules:
+            fail("jax was imported")
+        say(f"[card] {card_line()}")
+        say("[done] --train-only: no other path was driven")
+        return 0
     if args.mesh_only:
         build.build_all(["dvbyte_decode"])
         m2 = const_frozen(args.docs,
@@ -3527,6 +3990,7 @@ def main() -> int:
     del fleet
     gc.collect()       # and the fleet's and the mesh's before the LM's
     lm_phase()
+    train_phase()
     tri = triangle_path(TRIANGLE_DOCS, row["index"])
     if "jax" in sys.modules:
         fail("jax was imported")

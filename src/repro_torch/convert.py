@@ -15,6 +15,9 @@ JAX: a caller converts a JAX object's fields with ``np.asarray`` first.
 * :func:`lm_from_jax` builds a port :class:`~repro_torch.models.lm.LM`
   holding the parameters of the reference's LM ``init_params`` pytree
   (float32 or bfloat16 leaves);
+* :func:`adamw_from_jax` builds a port
+  :class:`~repro_torch.optim.adamw.AdamWState` holding the reference's
+  ``adamw_init``/``adamw_update`` state (float32 or bfloat16 moments);
 * :func:`static_from_jax` builds a port
   :class:`~repro_torch.core.static_index.StaticIndex` from the reference's
   ``StaticIndex.to_arrays()`` output: the same compressed streams, so the
@@ -32,6 +35,7 @@ from .core.index import DynamicIndex
 from .core.static_index import StaticIndex
 from .models.lm import LM, LMConfig
 from .models.recsys import TwoTower, TwoTowerConfig
+from .optim.adamw import AdamWState
 
 _IMAGE_FIELDS = ("blocks", "term_slot", "term_nblk", "term_skip", "term_nx",
                  "term_ft")
@@ -125,11 +129,12 @@ def twotower_from_jax(params: dict, cfg: TwoTowerConfig,
 def _leaf(a) -> torch.Tensor:
     """A tensor of a numpy leaf.  ``np.asarray`` of a bfloat16 JAX array is
     an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` rejects: its
-    bits are read as uint16 and reinterpreted.  A read-only array (as
-    ``np.asarray`` of a JAX array is) is copied first."""
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:
-        a = a.copy()
+    bits are read as uint16 and reinterpreted.  A read-only or
+    non-contiguous array (``np.asarray`` of a JAX array is read-only) is
+    copied first; a 0-d array stays 0-d."""
+    a = np.asarray(a)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = a.copy()            # C order; a 0-d array stays 0-d
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
@@ -152,6 +157,23 @@ def lm_from_jax(params: dict, cfg: LMConfig, device=None) -> LM:
         "layers": {n: put(w) for n, w in params["layers"].items()},
         "ln_f": put(params["ln_f"]),
         "out_proj": put(params["out_proj"])})
+
+
+def adamw_from_jax(state, device=None) -> AdamWState:
+    """The port's AdamW state holding the reference's: its ``AdamWState``
+    with numpy arrays as leaves (``jax.tree.map(np.asarray, state)``).
+    The moments keep their dtype (bfloat16 bits read by :func:`_leaf`) and
+    the tree of dicts its keys; the step is a 0-d int32 tensor.
+    ``device`` None means the card (see :func:`resolve_device`)."""
+    device = resolve_device(device)
+
+    def put(tree):
+        if isinstance(tree, dict):
+            return {k: put(v) for k, v in tree.items()}
+        return _leaf(tree).to(device)
+
+    return AdamWState(step=put(np.asarray(state.step, np.int32)),
+                      mu=put(state.mu), nu=put(state.nu))
 
 
 def static_from_jax(meta: dict, arrays: dict) -> StaticIndex:

@@ -1,4 +1,4 @@
-"""Transformer LM family, serving half: dense + MoE, GQA, RoPE, SwiGLU.
+"""Transformer LM family: dense + MoE, GQA, RoPE, SwiGLU.
 
 Ported from the JAX package's ``src/repro/models/lm.py``.  One
 implementation covers the five LM architectures of ``configs/``
@@ -7,8 +7,9 @@ parameters keep the reference's layout: a dict with ``embed`` (Vp, D),
 ``ln_f`` (D,), ``out_proj`` (D, Vp) and ``layers``, whose entries are
 stacked (L, ...).  :class:`LM` holds them as an ``nn.Module`` with
 ``prefill`` and ``decode``; the functional forms (:func:`forward`,
-:func:`make_prefill_step`, :func:`make_serve_step`) take the dict, as the
-reference's do, so the tests hold each against its counterpart.
+:func:`lm_loss`, :func:`make_train_step`, :func:`make_prefill_step`,
+:func:`make_serve_step`) take the dict, as the reference's do, so the tests
+hold each against its counterpart.
 
 What stays the reference's arithmetic:
 
@@ -30,15 +31,26 @@ What stays the reference's arithmetic:
   ``torch.bincount``, which reads its maximum back to the host on CUDA:
   nothing in the function waits for the card.
 * Logits keep the padded vocabulary columns; callers take
-  ``logits[:, :cfg.vocab]``.
+  ``logits[:, :cfg.vocab]``.  :func:`lm_loss` fills them with -1e30, as
+  the reference's loss does.
+* Training: :func:`lm_loss` is the reference's chunked cross-entropy and
+  :func:`make_train_step` its microbatched step, gradients accumulated in
+  the parameters' dtype.  ``cfg.remat`` puts each layer under
+  ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+  scan body).  The backward pass is deterministic by construction: the
+  gathers (``embed[tokens]``, the MoE's ``x[order // K]``, ``sorted_tok``
+  and ``flat_out[src]``) go back through ``index_put_(accumulate=True)``,
+  which PyTorch computes on CUDA by sorting the indices and adding each
+  row's contributions in that order, and ``moe_ffn``'s one ``index_add_``
+  adds integers (the counts), which carry no gradient.  So a run resumed
+  from a checkpoint gives the bits of one that never stopped.
 
-What goes: the reference's ``mesh`` argument, ``_boundary_constraint``
-and every ``constrain`` call are sharding hints, which do nothing on one
-card; ``lax.scan`` over layers and ``jax.checkpoint`` become a Python loop
-(no autograd here: the port serves).  Not ported yet: ``lm_loss`` and
-``make_train_step`` (the training slice), ``_flash_unrolled`` and the probe
-mode (``probe_layers``, ``probe_unroll``), which exist for the reference's
-HLO dry-run.
+What goes: the reference's ``mesh`` argument, ``_boundary_constraint``,
+every ``constrain`` call and ``make_train_step``'s ``param_shardings`` are
+sharding hints, which do nothing on one card; ``lax.scan`` over layers and
+over loss chunks becomes a Python loop.  Not ported: ``_flash_unrolled``
+and the probe mode (``probe_layers``, ``probe_unroll``), which exist for
+the reference's HLO dry-run.
 
 The decode cache is laid out (L, B, S, KV*d_head) as in the reference.
 :func:`make_serve_step`'s step writes the new token's K and V into the
@@ -54,8 +66,11 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
+from .. import tree
 from ..core.device_index import resolve_device
+from ..optim.adamw import global_norm
 
 
 @dataclass(frozen=True)
@@ -348,31 +363,64 @@ def _ffn(h2: torch.Tensor, lp: dict, cfg: LMConfig, drops) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# forward / serve steps
+# forward / loss
 # --------------------------------------------------------------------------
+
+
+def _block(x: torch.Tensor, lp: dict, cfg: LMConfig,
+           positions: torch.Tensor, drops):
+    """One layer on x (B, S, D) -> (x, k, v)."""
+    B, S, _ = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    h = rmsnorm(x, lp["ln1"])
+    q = (h @ lp["wq"]).reshape(B, S, H, dh)
+    k = (h @ lp["wk"]).reshape(B, S, KV, dh)
+    v = (h @ lp["wv"]).reshape(B, S, KV, dh)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    att = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk)
+    x = x + att.reshape(B, S, H * dh) @ lp["wo"]
+    x = x + _ffn(rmsnorm(x, lp["ln2"]), lp, cfg, drops)
+    return x, k, v
+
+
+def _remat_block(x: torch.Tensor, lp: dict, cfg: LMConfig,
+                 positions: torch.Tensor, drops) -> torch.Tensor:
+    """:func:`_block` under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``): only x is kept for the backward pass, which runs
+    the layer again.  ``drops`` is handed to the first run alone, so a
+    recomputed layer's dropped tokens are not counted twice."""
+    box = [drops]
+
+    def run(x):
+        return _block(x, lp, cfg, positions, box.pop() if box else None)[0]
+
+    return checkpoint(run, x, use_reentrant=False)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
             return_kv: bool = False, drops: list | None = None):
     """tokens (B, S) -> final hidden (B, S, D) [+ per-layer KV cache, a
-    dict of (L, B, S, KV*dh) tensors]."""
+    dict of (L, B, S, KV*dh) tensors].
+
+    ``params["layers"]`` holds stacked (L, ...) tensors or, as the train
+    step passes them, a list of L per-layer tensors under each name.  With
+    ``cfg.remat``, autograd on and no cache asked for, each layer runs
+    under :func:`_remat_block`, as the reference's scan body runs under
+    ``jax.checkpoint``."""
     B, S = tokens.shape
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    KV, dh = cfg.n_kv_heads, cfg.d_head
     x = params["embed"][tokens]
     positions = torch.arange(S, device=tokens.device)[None, :]
+    remat = cfg.remat and not return_kv and torch.is_grad_enabled()
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        h = rmsnorm(x, lp["ln1"])
-        q = (h @ lp["wq"]).reshape(B, S, H, dh)
-        k = (h @ lp["wk"]).reshape(B, S, KV, dh)
-        v = (h @ lp["wv"]).reshape(B, S, KV, dh)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        att = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
-                              kv_chunk=cfg.kv_chunk)
-        x = x + att.reshape(B, S, H * dh) @ lp["wo"]
-        x = x + _ffn(rmsnorm(x, lp["ln2"]), lp, cfg, drops)
+        if remat:
+            x = _remat_block(x, lp, cfg, positions, drops)
+            continue
+        x, k, v = _block(x, lp, cfg, positions, drops)
         if return_kv:
             ks.append(k.reshape(B, S, KV * dh))
             vs.append(v.reshape(B, S, KV * dh))
@@ -391,6 +439,120 @@ def make_prefill_step(cfg: LMConfig):
         return hidden[:, -1] @ params["out_proj"], cache
 
     return prefill_step
+
+
+def _chunk_loss(h: torch.Tensor, y: torch.Tensor, out_proj: torch.Tensor,
+                cfg: LMConfig) -> torch.Tensor:
+    """Summed cross-entropy of one chunk of the sequence: the padded vocab
+    columns filled with -1e30 in the logits' dtype, then ``logsumexp`` and
+    the gold logit in float32."""
+    logits = h @ out_proj                                  # (B, ch, Vp)
+    if cfg.vocab_padded > cfg.vocab:                       # mask pad columns
+        vmask = torch.arange(cfg.vocab_padded, device=h.device) < cfg.vocab
+        logits = torch.where(vmask, logits, -1e30)
+    lf = logits.float()
+    # one gathered column a row: its backward (a scatter-add on CUDA) adds
+    # once to each address, so it is deterministic
+    gold = torch.gather(lf, -1, y[..., None].long())[..., 0]
+    return (torch.logsumexp(lf, -1) - gold).sum()
+
+
+def lm_loss(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
+    """Chunked cross-entropy: ``loss_chunk`` columns of the sequence at a
+    time, the float32 sum divided by B·S (a 0-d float32 tensor).
+
+    With autograd on, each chunk runs under ``torch.utils.checkpoint``, so
+    the graph keeps a chunk's hidden slice and not its float32 logits
+    (2 x 512 x 128,512 x 4 B = 526 MB a chunk for llama3.2-3b at full
+    width); the backward pass computes each chunk's logits again."""
+    hidden = forward(params, batch["tokens"], cfg)         # (B, S, D)
+    labels = batch["labels"]
+    B, S, _ = hidden.shape
+    ch = min(cfg.loss_chunk, S)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(S // ch):
+        args = (hidden[:, i * ch:(i + 1) * ch],
+                labels[:, i * ch:(i + 1) * ch], params["out_proj"], cfg)
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(_chunk_loss, *args, use_reentrant=False)
+        else:
+            tot = tot + _chunk_loss(*args)
+    return tot / (B * S)
+
+
+# --------------------------------------------------------------------------
+# train / serve steps
+# --------------------------------------------------------------------------
+
+
+def _trainable(params: dict, cfg: LMConfig, microbatch: int):
+    """(the tensors the train step differentiates, the gradient buffers).
+
+    One zeroed buffer a leaf, laid out as ``params``.  The differentiated
+    tensors share storage with the parameters and are autograd leaves, one
+    a layer for each stacked (L, ...) leaf, whose ``.grad`` is preset to
+    the matching slice of the buffer: autograd then adds each layer's
+    gradient straight into the buffer as the backward pass reaches it (a
+    slice of a stacked leaf would instead give a full-size gradient a
+    layer).  Each leaf's gradient is divided by ``microbatch`` before it is
+    added, as the reference accumulates ``acc + (g / mb).astype(acc)``."""
+    grads = tree.tree_map(torch.zeros_like, params)
+
+    def leaf(p, g):
+        t = p.detach().requires_grad_()
+        t.grad = g
+        if microbatch > 1:
+            t.register_hook(lambda gr: gr / microbatch)
+        return t
+
+    L = cfg.n_layers
+    return {"embed": leaf(params["embed"], grads["embed"]),
+            "layers": {n: [leaf(w[i], grads["layers"][n][i])
+                           for i in range(L)]
+                       for n, w in params["layers"].items()},
+            "ln_f": leaf(params["ln_f"], grads["ln_f"]),
+            "out_proj": leaf(params["out_proj"], grads["out_proj"])}, grads
+
+
+def make_train_step(cfg: LMConfig, optimizer_update):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    loss, gnorm).
+
+    ``batch`` holds ``tokens`` and ``labels`` (B, S) on the parameters'
+    device.  The batch is split into ``cfg.microbatch`` slices; each
+    slice's gradient is accumulated in the parameters' dtype (see
+    :func:`_trainable`) and the loss is the mean of the slices' losses.
+    Then ``optimizer_update(params, grads, opt_state) -> (params,
+    opt_state, gnorm)`` runs, in place for :func:`..optim.adamw_update`.
+
+    The reference's rule for a non-finite loss holds: its trainer keeps the
+    old parameters and moments then.  An in-place update cannot be taken
+    back, so the step decides before it: it reads ``torch.isfinite(loss)``
+    on the host (the one sync of a step, which the trainer's
+    ``float(loss)`` makes anyway) and, where the loss is not finite,
+    returns the parameters, moments and step counter untouched with the
+    gradient's global norm.  A finite loss is applied even where the
+    gradients are not finite, as in the reference."""
+
+    def train_step(params, opt_state, batch):
+        mb = cfg.microbatch
+        tokens, labels = batch["tokens"], batch["labels"]
+        sz = tokens.shape[0] // mb
+        leaves, grads = _trainable(params, cfg, mb)
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for i in range(mb):
+            part = {"tokens": tokens[i * sz:(i + 1) * sz],
+                    "labels": labels[i * sz:(i + 1) * sz]}
+            mb_loss = lm_loss(leaves, part, cfg)
+            mb_loss.backward()
+            loss = loss + mb_loss.detach() / mb
+        del leaves
+        if not torch.isfinite(loss):
+            return params, opt_state, loss, global_norm(grads)
+        params, opt_state, gnorm = optimizer_update(params, grads, opt_state)
+        return params, opt_state, loss, gnorm
+
+    return train_step
 
 
 def make_serve_step(cfg: LMConfig):
@@ -452,7 +614,8 @@ class LM(nn.Module):
     ``device`` None means the card (raises without CUDA).  ``params``, a
     dict laid out as :func:`param_shapes` says, is adopted as it is;
     otherwise :func:`init_params` draws one from ``generator``.  The
-    parameters do not require grad: the port serves."""
+    parameters do not require grad: the module serves, and
+    :func:`make_train_step` trains the dict of :meth:`params`."""
 
     def __init__(self, cfg: LMConfig, device=None,
                  generator: torch.Generator | None = None,

@@ -92,7 +92,8 @@ def test_importing_the_port_loads_no_jax():
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
-            "m.startswith('repro.'))\n"
+            "m.startswith('repro.') or m == 'ml_dtypes' or "
+            "m.startswith('ml_dtypes.'))\n"
             "assert not bad, bad\n"
             "print(len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
@@ -102,8 +103,9 @@ def test_importing_the_port_loads_no_jax():
     assert len(mods) >= 20
 
 
-_FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|repro)(?:[.\s,]|$)",
-                        re.M)
+# the card's machine has no jax and no ml_dtypes either
+_FORBIDDEN = re.compile(
+    r"^\s*(?:from|import)\s+(?:jax|repro|ml_dtypes)(?:[.\s,]|$)", re.M)
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(PORT).as_posix()
@@ -117,6 +119,7 @@ def test_port_source_imports_neither_jax_nor_repro(path):
                                   "examples/quickstart_torch.py",
                                   "examples/engine_quickstart_torch.py",
                                   "examples/serve_stream_torch.py",
+                                  "examples/train_quickstart_torch.py",
                                   "chip_smoke.py",
                                   "tests/test_torch_gpu_kernels.py",
                                   "tests/test_torch_gpu_term_kernels.py",
