@@ -20,6 +20,8 @@
                                            # 6) alone, ~1 min
     python3 chip_smoke.py --train-only     # the LM training path (phase
                                            # 7) alone, ~2 min
+    python3 chip_smoke.py --recsys-only    # the recsys path (phase 7b)
+                                           # alone
 
 Phases, each printing its own lines; the first failed check exits non-zero:
 
@@ -223,6 +225,31 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      checkpoints and 3 more from a new run on freshly drawn parameters
      that restores the checkpoint: parameters, moments and the resumed
      losses bit-identical; the saves and the restore timed;
+  7b. the recsys path (:func:`recsys_phase`; also alone by
+     ``--recsys-only``), which launches none of the five kernels either:
+     (a) DLRM, SASRec, DIN and the two-tower model at their published
+     widths (DLRM 26 fields, embed 128, bottom 13-512-256-128, top
+     479-1024-1024-512-256-1; SASRec D 50, 2 blocks, S 50; DIN D 18, L
+     100, attention 80-40, MLP 200-80; two-tower D 256, towers
+     1024-512-256, 8 user features) with their tables cut to
+     ``RECSYS_CUT_ROWS`` rows a field or table, in float32 with TF32 off,
+     drawn once on the card and copied to the CPU; a batch of
+     ``RECSYS_AB`` through both: the serve output, the loss and gnorm of
+     one ``make_train_step`` step within ``RECSYS_TOL`` of the CPU's
+     largest |value|, each gradient leaf within ``RECSYS_GRAD_TOL`` of its
+     max |g|, and one AdamW update from the same gradients within
+     ``RECSYS_OPT_TOL``; (b) each model at full scale through
+     ``repro_torch.launch.train.train_recsys`` and the Trainer:
+     ``RECSYS_STEPS`` AdamW steps on one ``ModelBatches`` batch of
+     train_batch's 65,536 repeated, every loss finite and applied, the
+     last below the first, then served at serve_p99 (B = 512) and DLRM
+     also at serve_bulk (B = 262,144); each shape's median ms beside its
+     compute bound (``RecsysArch.flops`` at the batch run over 67 TFLOP/s
+     float32) and its peak memory, and one train step of each under
+     ``torch.profiler`` (busy ms, idle share, kernels).  Its cuts, each
+     printed: DLRM's fields capped at ``DLRM_ROW_CAP`` rows in (b)
+     (Criteo-1TB's 104.5 GB of float32 tables exceed the card), the
+     two-tower's train batch ``TWOTOWER_BATCH``, and the tables in (a);
   8. Path A, the variable-growth kernel backend: the first
      ``TRIANGLE_DOCS`` documents of the WSJ1-like stream (cut to 6,144
      for the tier, fleet, mesh and LM phases) into ``Engine(B=64,
@@ -266,7 +293,7 @@ to its freeze and deals the fleet's documents into two host indexes, and
 runs phase 5 alone.
 ``--lm-only`` builds nothing (the LM path launches no hand-written kernel)
 and runs phase 6 alone; ``--train-only`` builds nothing and runs phase 7
-alone.
+alone; ``--recsys-only`` builds nothing and runs phase 7b alone.
 ``--fused-only PT`` builds only ``fused_query`` and times it on phase 3's
 first prepared batch of 32 queries per mode, read from PT, or first
 written there from a Const engine built as phase 3 builds it (a CRC of
@@ -3834,6 +3861,287 @@ def train_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 7b: the recsys path
+# --------------------------------------------------------------------------
+
+RECSYS_ARCHS = ("dlrm-mlperf", "sasrec", "din", "two-tower-retrieval")
+RECSYS_CUT_ROWS = 4_096     # (a): rows a DLRM field or a table, for the
+#                             CPU's side of the comparison
+RECSYS_AB = 64              # (a): the batch of the comparison
+RECSYS_TOL = 1e-5           # (a): outputs, loss, gnorm: max |card - CPU|
+#                             over the CPU's max |value|, float32
+RECSYS_GRAD_TOL = 1e-4      # (a): each gradient leaf, of its max |g|
+RECSYS_OPT_TOL = 1e-6       # (a): AdamW from the same gradients, per leaf
+RECSYS_STEPS = 4            # (b): AdamW steps on one batch repeated
+RECSYS_LR = 1e-3            # (b): the reference's recsys rate
+DLRM_ROW_CAP = 2_000_000    # (b): rows a DLRM field: Criteo-1TB's
+#                             204,184,588 x 128 float32 (104.5 GB) do not
+#                             fit the card's 80 GB
+TWOTOWER_BATCH = 16_384     # (b): the two-tower's train batch: at 65,536
+#                             the (B, B) float32 logits and their gradient
+#                             alone take 34.4 GB
+RECSYS_SERVE_REPS = 5       # serve: timed batches per shape (median)
+F32_FLOPS = 67e12           # H100 SXM, float32 outside the tensor cores
+RECSYS_DEVICE = "cuda"
+
+
+def _recsys_cut(arch):
+    """``arch`` with its tables cut to ``RECSYS_CUT_ROWS`` rows a DLRM
+    field or a table, every width kept."""
+    from dataclasses import replace
+    c, n = arch.cfg, RECSYS_CUT_ROWS
+    cfg = {"dlrm": lambda: replace(c, table_rows=(n,) * len(c.table_rows)),
+           "sasrec": lambda: replace(c, n_items=n),
+           "din": lambda: replace(c, n_items=n),
+           "twotower": lambda: replace(c, n_users_vocab=n, n_items=n)}[
+        arch.kind]()
+    return replace(arch, cfg=cfg)
+
+
+def _recsys_serve_batch(arch, B: int, seed: int = 0) -> dict:
+    """A serve batch of ``B`` examples with ``_batch_specs(B, serve=True)``'s
+    keys: the train batch's inputs, and for SASRec the specs' candidate
+    items a user, drawn uniformly from the seed."""
+    from repro_torch.data.recsys import ModelBatches
+    b = ModelBatches(arch.kind, arch.cfg, B, seed=seed).batch_at(0)
+    keys = arch._batch_specs(B, serve=True)
+    if arch.kind == "sasrec":
+        b["cands"] = np.random.default_rng(seed).integers(
+            0, arch.cfg.n_items, tuple(keys["cands"].shape)).astype(np.int32)
+    return {k: b[k] for k in keys}
+
+
+def _on(batch: dict, device) -> dict:
+    import torch
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def recsys_against_cpu(arch_id: str) -> dict:
+    """Phase 7b (a): ``arch_id`` at its published widths, its tables cut
+    to ``RECSYS_CUT_ROWS`` rows, float32 (TF32 off), drawn once on the card
+    and copied to the CPU; a batch of ``RECSYS_AB`` through both: the
+    serve output, the loss and gnorm of one ``make_train_step`` step and
+    every gradient leaf, then one AdamW update from the CPU's gradients on
+    both."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import ModelBatches
+    from repro_torch.models.recsys import make_train_step
+    from repro_torch.optim import adamw_init, adamw_update
+    t0 = time.perf_counter()
+    arch = _recsys_cut(get_arch(arch_id))
+    card = arch.init(RECSYS_DEVICE, torch.Generator(
+        device=RECSYS_DEVICE).manual_seed(1))
+    host = tree.tree_map(lambda t: t.cpu(), card)
+    train_b = ModelBatches(arch.kind, arch.cfg, RECSYS_AB).batch_at(0)
+    serve_b = _recsys_serve_batch(arch, RECSYS_AB)
+    loss_fn, serve_fn = arch.loss_and_serve()
+    runs = {}
+    for name, params in (("card", card), ("cpu", host)):
+        dev = tree.leaves(params)[0].device
+        with torch.no_grad():
+            out = serve_fn(params, _on(serve_b, dev))
+        store: dict = {}
+        _, _, loss, gnorm = make_train_step(loss_fn, _grad_capture(store))(
+            params, None, _on(train_b, dev))
+        runs[name] = {"out": out, "loss": loss, "gnorm": gnorm,
+                      "grads": store["grads"]}
+    c, h = runs["card"], runs["cpu"]
+    errs = {k: _rel_err(c[k].reshape(-1), h[k].reshape(-1))
+            for k in ("out", "loss", "gnorm")}
+    grads = h["grads"]
+    grads_card = tree.tree_map(lambda t: t.to(RECSYS_DEVICE), grads)
+    grad_errs = [_leaf_err(g, w) for g, w in
+                 zip(tree.leaves(c["grads"]), tree.leaves(grads_card))]
+    if max(errs.values()) > RECSYS_TOL:
+        fail(f"[recsys] (a) {arch_id}: card against CPU {errs} > "
+             f"{RECSYS_TOL}")
+    if max(grad_errs) > RECSYS_GRAD_TOL:
+        fail(f"[recsys] (a) {arch_id}: gradient leaves card against CPU "
+             f"{grad_errs} > {RECSYS_GRAD_TOL} of each leaf's max |g|")
+    del runs, c, h
+    done = {}
+    for name, params, g in (("card", card, grads_card), ("cpu", host, grads)):
+        state = adamw_init(params)
+        adamw_update(params, g, state, RECSYS_LR)
+        done[name] = (params, state)
+    opt_errs = [_leaf_err(a, b) for a, b in
+                zip(tree.leaves(done["card"]), tree.leaves(done["cpu"]))]
+    if max(opt_errs) > RECSYS_OPT_TOL:
+        fail(f"[recsys] (a) {arch_id}: one AdamW update from the same "
+             f"gradients, card against CPU {opt_errs} > {RECSYS_OPT_TOL}")
+    n_params = sum(t.numel() for t in tree.leaves(card))
+    del card, host, grads, grads_card, done
+    _free_card()
+    wall = time.perf_counter() - t0
+    say(f"[recsys] (a) {arch_id} at its published widths, tables cut to "
+        f"{RECSYS_CUT_ROWS} rows a field or table ({n_params / 1e6:.1f} M "
+        f"parameters), float32 (drawn on the card, copied to the CPU; TF32 "
+        f"off), a batch of {RECSYS_AB}, card against CPU: serve output "
+        f"{errs['out']:.3e}, loss {errs['loss']:.3e}, gnorm "
+        f"{errs['gnorm']:.3e} (tolerance {RECSYS_TOL}); the "
+        f"{len(grad_errs)} gradient leaves within {max(grad_errs):.3e} of "
+        f"each leaf's max |g| (tolerance {RECSYS_GRAD_TOL}); one AdamW "
+        f"update from the same gradients within {max(opt_errs):.3e} "
+        f"(tolerance {RECSYS_OPT_TOL}); {wall:.1f} s")
+    return {**errs, "grad": max(grad_errs), "opt": max(opt_errs), "s": wall}
+
+
+def recsys_full(arch_id: str) -> dict:
+    """Phase 7b (b): ``arch_id`` at full scale on the card (DLRM's fields
+    capped at ``DLRM_ROW_CAP`` rows), ``RECSYS_STEPS`` AdamW steps through
+    ``train_recsys`` and the Trainer on one ``ModelBatches`` batch of
+    train_batch's 65,536 (the two-tower's ``TWOTOWER_BATCH``) repeated:
+    every loss finite and applied, the last below the first; then served
+    at serve_p99 (and DLRM at serve_bulk).  Each shape's median ms beside
+    its compute bound, and the peak memory; one more train step under
+    ``torch.profiler``."""
+    import torch
+    from dataclasses import replace
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import REC_SHAPES
+    from repro_torch.data.recsys import ModelBatches
+    from repro_torch.launch.train import train_recsys
+    arch = get_arch(arch_id)
+    cut = ""
+    if arch.kind == "dlrm":
+        rows = tuple(min(r, DLRM_ROW_CAP) for r in arch.cfg.table_rows)
+        arch = replace(arch, cfg=replace(arch.cfg, table_rows=rows))
+        cut = (f"; fields capped at {DLRM_ROW_CAP:,} rows: "
+               f"{sum(rows):,} rows padded to {arch.cfg.total_rows:,} of "
+               f"Criteo-1TB's 204,184,588")
+    B = REC_SHAPES["train_batch"]["batch"]
+    if arch.kind == "twotower":
+        B = TWOTOWER_BATCH
+        cut = f"; train batch {B:,} of train_batch's 65,536"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data = _OneBatch(ModelBatches(arch.kind, arch.cfg, B))
+    data_s = time.perf_counter() - t0
+    run = train_recsys(arch, None, RECSYS_STEPS, batch=B,
+                       device=RECSYS_DEVICE, lr=RECSYS_LR, log_every=0,
+                       data=data)
+    wall = time.perf_counter() - t0
+    trainer = run["trainer"]
+    m = trainer.metrics
+    losses = [x["loss"] for x in m]
+    gnorms = [x["gnorm"] for x in m]
+    if not all(np.isfinite(losses + gnorms)):
+        fail(f"[recsys] (b) {arch_id}: losses {losses}, gnorms {gnorms}: "
+             f"not finite")
+    if int(trainer.opt_state.step) != RECSYS_STEPS:
+        fail(f"[recsys] (b) {arch_id}: {int(trainer.opt_state.step)} of "
+             f"{RECSYS_STEPS} steps were applied")
+    if not losses[-1] < losses[0]:
+        fail(f"[recsys] (b) {arch_id}: the loss did not fall: {losses}")
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    params = trainer.params
+    gb = sum(t.numel() * t.element_size() for t in tree.leaves(params)) / 1e9
+    ms = float(np.median([x["sec"] for x in m[1:]])) * 1e3
+    bound = arch.flops("train_batch", batch=B) / F32_FLOPS * 1e3
+    out = {"train_ms": ms, "train_bound_ms": bound, "losses": losses,
+           "train_peak_gb": train_peak, "serve": {}}
+    batch = _on(data.batch, RECSYS_DEVICE)
+    prof = train_profile(lambda: trainer.train_step(
+        trainer.params, trainer.opt_state, batch))
+    out["profile"] = prof
+    say(f"[recsys] (b) {arch_id} at full scale ({gb:.2f} GB of float32 "
+        f"parameters{cut}), {RECSYS_STEPS} AdamW steps (lr {RECSYS_LR}, "
+        f"moments float32) through train_recsys and the Trainer on one "
+        f"ModelBatches batch of {B:,} repeated (drawn in {data_s:.1f} s): "
+        f"losses " + ", ".join(f"{x:.4f}" for x in losses) + "; gnorms "
+        + ", ".join(f"{x:.3f}" for x in gnorms)
+        + f"; every step applied; {wall:.1f} s with the draw")
+    say(f"[time] recsys {arch_id} train step at B={B:,}: {ms:.1f} ms median "
+        f"of steps 2-{RECSYS_STEPS} on the host's clock (each ending in a "
+        f"synchronize; step 1 {m[0]['sec'] * 1e3:.1f} ms), "
+        f"{B / ms * 1e3:,.0f} examples/s; compute bound {bound:.2f} ms "
+        f"(RecsysArch.flops at B={B:,} over 67 TFLOP/s float32), ms/bound "
+        f"{ms / bound:.1f}; peak memory {train_peak:.2f} GB; {card_line()}")
+    busy = prof["busy_ms"]
+    if busy is None:
+        say(f"[time] recsys {arch_id} under torch.profiler: no device "
+            f"time recorded; {prof['wall_ms']:.1f} ms a step")
+    else:
+        out["idle"] = 1 - busy / ms
+        say(f"[time] recsys {arch_id} train step under torch.profiler "
+            f"(CUDA activity): {prof['wall_ms']:.1f} ms, the card busy "
+            f"{busy:.1f} ms in {prof['kernels']} kernels: idle share "
+            f"{out['idle']:.3f} of the unprofiled step's {ms:.1f} ms; "
+            f"most device time: " + "; ".join(
+                f"{name} {t:.1f} ms" for name, t in prof["top"]))
+    del data, run, trainer, batch
+    _, serve_fn = arch.loss_and_serve()
+    shapes = ["serve_p99"] + (["serve_bulk"] if arch.kind == "dlrm" else [])
+    for shape in shapes:
+        Bs = REC_SHAPES[shape]["batch"]
+        batch = _on(_recsys_serve_batch(arch, Bs, seed=2), RECSYS_DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        with torch.no_grad():
+            for _ in range(RECSYS_SERVE_REPS + 1):
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                scores = serve_fn(params, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - ts) * 1e3)
+        want = tuple(arch._batch_specs(Bs, serve=True)["cands"].shape) \
+            if arch.kind == "sasrec" else (Bs,)
+        if tuple(scores.shape) != want or not torch.isfinite(scores).all():
+            fail(f"[recsys] serve {arch_id} {shape}: scores of shape "
+                 f"{tuple(scores.shape)} (want {want}), finite "
+                 f"{bool(torch.isfinite(scores).all())}")
+        sms = float(np.median(times[1:]))
+        sbound = arch.flops(shape) / F32_FLOPS * 1e3
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out["serve"][shape] = {"ms": sms, "bound_ms": sbound, "peak_gb": peak}
+        say(f"[time] recsys {arch_id} serve at {shape} (B={Bs:,}): "
+            f"{sms:.2f} ms median of {RECSYS_SERVE_REPS} batches (first "
+            f"{times[0]:.2f} ms), {Bs / sms * 1e3:,.0f} examples/s; compute "
+            f"bound {sbound:.3f} ms (RecsysArch.flops over 67 TFLOP/s "
+            f"float32), ms/bound {sms / sbound:.1f}; peak memory "
+            f"{peak:.2f} GB; {card_line()}")
+        del batch, scores
+    del params
+    _free_card()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def recsys_phase() -> dict:
+    """Phase 7b, the recsys path: (a) each of ``RECSYS_ARCHS`` card against
+    CPU at its widths, (b) each at full scale, trained and served.  The
+    five kernels' counts are set to 0 before it and read after: the path
+    launches none of them."""
+    import importlib
+    from repro_torch.kernels import build
+    counters = {name: importlib.import_module(
+        f"repro_torch.kernels.{name}.kernel") for name in build.SOURCES}
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    say(f"[recsys] cuts: (a) tables of {RECSYS_CUT_ROWS:,} rows a field or "
+        f"table for the CPU's side; (b) DLRM's fields capped at "
+        f"{DLRM_ROW_CAP:,} rows (Criteo-1TB's 104.5 GB of float32 tables "
+        f"exceed the card), the two-tower's train batch "
+        f"{TWOTOWER_BATCH:,} of 65,536; SASRec, DIN and the two-tower "
+        f"keep their full tables")
+    out = {"parity": {a: recsys_against_cpu(a) for a in RECSYS_ARCHS},
+           "full": {a: recsys_full(a) for a in RECSYS_ARCHS}}
+    launched = {name: mod.launches for name, mod in counters.items()}
+    if any(launched.values()):
+        fail(f"[recsys] the recsys path launched {launched}")
+    out["s"] = time.perf_counter() - t0
+    say(f"[recsys] phase 7b took {out['s']:.1f} s; launches of the five "
+        f"hand-written kernels during it: {launched} (the recsys models "
+        f"are torch ops and cuBLAS products; they reach no Pallas kernel "
+        f"in the reference)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=CONST_DOCS,
@@ -3880,6 +4188,10 @@ def main() -> int:
                     help="run phase 7, the LM training path, alone (no "
                          "kernel is built: the path launches none), and "
                          "stop: no other path is driven")
+    ap.add_argument("--recsys-only", action="store_true",
+                    help="run phase 7b, the recsys path, alone (no kernel "
+                         "is built: the path launches none), and stop: no "
+                         "other path is driven")
     ap.add_argument("--fused-only", type=Path, metavar="PT",
                     help="time the fused kernel alone on the main path's "
                          "prepared batches, read from PT (written there "
@@ -3944,6 +4256,13 @@ def main() -> int:
         say(f"[card] {card_line()}")
         say("[done] --train-only: no other path was driven")
         return 0
+    if args.recsys_only:
+        recsys_phase()
+        if "jax" in sys.modules:
+            fail("jax was imported")
+        say(f"[card] {card_line()}")
+        say("[done] --recsys-only: no other path was driven")
+        return 0
     if args.mesh_only:
         build.build_all(["dvbyte_decode"])
         m2 = const_frozen(args.docs,
@@ -3991,6 +4310,7 @@ def main() -> int:
     gc.collect()       # and the fleet's and the mesh's before the LM's
     lm_phase()
     train_phase()
+    recsys_phase()
     tri = triangle_path(TRIANGLE_DOCS, row["index"])
     if "jax" in sys.modules:
         fail("jax was imported")

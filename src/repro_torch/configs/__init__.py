@@ -2,11 +2,10 @@
 ``get_arch(<id>)`` resolves the JAX package's ids and aliases
 (``src/repro/configs/__init__.py``) for the architectures the port has.
 
-The five LM configurations and ``paper_index`` resolve to their ``ARCH``.
-The others are not ported yet: schnet, dlrm-mlperf, sasrec and din, and
-two-tower-retrieval's architecture record (its config is
-``configs.two_tower_retrieval.CFG``); ``get_arch`` raises a ``KeyError``
-that says so.
+The five LM configurations, the four recsys ones (dlrm-mlperf, sasrec,
+din, two-tower-retrieval) and ``paper_index`` resolve to their ``ARCH``.
+schnet is not ported yet: ``get_arch`` raises a ``KeyError`` that says
+so.
 """
 
 from importlib import import_module
@@ -42,6 +41,10 @@ PORTED = frozenset({
     "granite_3_2b",
     "llama3_2_3b",
     "mistral_large_123b",
+    "dlrm_mlperf",
+    "sasrec",
+    "din",
+    "two_tower_retrieval",
     "paper_index",
 })
 

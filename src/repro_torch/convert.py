@@ -12,6 +12,8 @@ JAX: a caller converts a JAX object's fields with ``np.asarray`` first.
 * :func:`twotower_from_jax` builds a port
   :class:`~repro_torch.models.recsys.TwoTower` holding the parameters of
   the reference's ``twotower_init`` pytree;
+* :func:`recsys_from_jax` carries a recsys model's parameter tree (DLRM,
+  SASRec, DIN or two-tower) across as the port's tree of tensors;
 * :func:`lm_from_jax` builds a port :class:`~repro_torch.models.lm.LM`
   holding the parameters of the reference's LM ``init_params`` pytree
   (float32 or bfloat16 leaves);
@@ -30,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import tree
 from .core.device_index import DeltaIndex, DeviceIndex, resolve_device
 from .core.index import DynamicIndex
 from .core.static_index import StaticIndex
@@ -101,29 +104,20 @@ def twotower_from_jax(params: dict, cfg: TwoTowerConfig,
     ``user_tower``/``item_tower`` lists of ``{"w": (in, out), "b": (out,)}``).
     Each ``w`` becomes a ``Linear.weight`` (out, in).  ``device`` None
     means the card (see :func:`resolve_device`)."""
+    return TwoTower(cfg, device=device,
+                    params=recsys_from_jax(params, device))
+
+
+def recsys_from_jax(params, device=None):
+    """The port's parameter tree of a recsys model (DLRM, SASRec, DIN or
+    two-tower) holding the reference's: its ``*_init`` pytree with numpy
+    arrays as leaves (``jax.tree.map(np.asarray, params)``).  Lists stay
+    lists and dicts keep their keys; each leaf becomes a float32 tensor
+    (exact from float32 or bfloat16).  ``device`` None means the card (see
+    :func:`resolve_device`)."""
     device = resolve_device(device)
-    model = TwoTower(cfg, device=device)
-
-    def put(dst: torch.Tensor, src) -> None:
-        src = torch.from_numpy(np.array(src, dtype=np.float32))
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"parameter of shape {tuple(src.shape)}, "
-                             f"expected {tuple(dst.shape)}")
-        dst.copy_(src.to(device=device, dtype=dst.dtype))
-
-    with torch.no_grad():
-        put(model.user_table.weight, params["user_table"])
-        put(model.item_table.weight, params["item_table"])
-        for name in ("user_tower", "item_tower"):
-            linears = [m for m in getattr(model, name)
-                       if isinstance(m, torch.nn.Linear)]
-            if len(linears) != len(params[name]):
-                raise ValueError(f"{name}: {len(params[name])} layers, the "
-                                 f"config has {len(linears)}")
-            for lin, layer in zip(linears, params[name]):
-                put(lin.weight, np.asarray(layer["w"]).T)
-                put(lin.bias, layer["b"])
-    return model
+    return tree.tree_map(
+        lambda a: _leaf(a).to(device=device, dtype=torch.float32), params)
 
 
 def _leaf(a) -> torch.Tensor:
@@ -163,17 +157,17 @@ def adamw_from_jax(state, device=None) -> AdamWState:
     """The port's AdamW state holding the reference's: its ``AdamWState``
     with numpy arrays as leaves (``jax.tree.map(np.asarray, state)``).
     The moments keep their dtype (bfloat16 bits read by :func:`_leaf`) and
-    the tree of dicts its keys; the step is a 0-d int32 tensor.
-    ``device`` None means the card (see :func:`resolve_device`)."""
+    their tree (dicts with their keys, lists, anything :mod:`.tree` walks);
+    the step is a 0-d int32 tensor.  ``device`` None means the card (see
+    :func:`resolve_device`)."""
     device = resolve_device(device)
 
-    def put(tree):
-        if isinstance(tree, dict):
-            return {k: put(v) for k, v in tree.items()}
-        return _leaf(tree).to(device)
+    def put(a):
+        return _leaf(a).to(device)
 
     return AdamWState(step=put(np.asarray(state.step, np.int32)),
-                      mu=put(state.mu), nu=put(state.nu))
+                      mu=tree.tree_map(put, state.mu),
+                      nu=tree.tree_map(put, state.nu))
 
 
 def static_from_jax(meta: dict, arrays: dict) -> StaticIndex:

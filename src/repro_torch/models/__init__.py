@@ -1,2 +1,2 @@
-"""Models of the port: the two-tower retriever of hybrid retrieval and
-the transformer LM family (serving half)."""
+"""Models of the port: the recsys family (DLRM, SASRec, DIN and the
+two-tower retriever of hybrid retrieval) and the transformer LM family."""

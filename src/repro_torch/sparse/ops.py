@@ -6,8 +6,10 @@ and its gather semantics, which differ from PyTorch's indexing:
 
 * a JAX gather clamps an out-of-range id instead of raising: an id ≥ rows
   reads the last row, and a negative id counts from the end (and clamps to
-  row 0 below -rows).  :func:`take_rows` does the same, so a lookup past
-  the table computes what the reference computes (a CUDA gather would
+  row 0 below -rows).  Its gradient, XLA's scatter-add, drops the update of
+  an id that is still out of range after the count from the end.
+  :func:`take_rows` does both, so a lookup past the table computes what
+  the reference computes, forward and backward (a CUDA gather would
   otherwise assert on the card);
 * ``jax.ops.segment_sum`` drops elements whose segment id is out of range;
   :func:`segment_sum` does too.
@@ -19,11 +21,16 @@ import torch
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]`` with JAX's clamped gather: (*ids.shape, D)."""
+    """``table[ids]`` with JAX's clamped gather: (*ids.shape, D).  An id
+    out of range reads a clamped row and sends it no gradient."""
     rows = table.shape[0]
     ids = ids.long()
-    ids = torch.where(ids < 0, ids + rows, ids).clamp(0, rows - 1)
-    return table[ids]
+    ids = torch.where(ids < 0, ids + rows, ids)
+    out = table[ids.clamp(0, rows - 1)]
+    if out.requires_grad:
+        inside = ((ids >= 0) & (ids < rows)).unsqueeze(-1)
+        out.register_hook(lambda g: g * inside)
+    return out
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,

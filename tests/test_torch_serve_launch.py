@@ -10,8 +10,9 @@ architecture registry (``repro_torch.configs``) against the JAX package's.
   its mesh with Explicit axes, which jax 0.9 rejects in its sharding
   constraint, and returns nothing; the test runs the same loop
   (``src/repro/launch/serve.py:59-91``) on a mesh with Auto axes instead.
-* ``get_arch``: every LM id and alias resolves to the reference's config
-  field for field; the ids the port lacks raise.
+* ``get_arch``: every LM and recsys id and alias resolves to the
+  reference's config field for field; schnet, which the port lacks,
+  raises.
 """
 
 import re
@@ -41,8 +42,9 @@ from repro_torch.launch.train import reduced_lm
 ROOT = Path(__file__).resolve().parents[1]
 LM_IDS = ["llama4_scout_17b_a16e", "granite_moe_3b_a800m", "granite_3_2b",
           "llama3_2_3b", "mistral_large_123b"]
-UNPORTED = ["schnet", "dlrm_mlperf", "dlrm-mlperf", "sasrec", "din",
-            "two_tower_retrieval", "two-tower-retrieval"]
+UNPORTED = ["schnet"]
+RECSYS_IDS = ["dlrm_mlperf", "dlrm-mlperf", "sasrec", "din",
+              "two_tower_retrieval", "two-tower-retrieval"]
 
 
 # --------------------------------------------------------------------------
@@ -214,6 +216,25 @@ def test_get_arch_matches_the_reference(arch_id):
         (red_j.n_layers, red_j.d_model, red_j.vocab_padded,
          red_j.n_experts_padded, red_j.q_chunk, red_j.kv_chunk)
     assert red_t.dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch_id", RECSYS_IDS)
+def test_get_arch_resolves_the_recsys_archs(arch_id):
+    got, want = configs.get_arch(arch_id), jax_get_arch(arch_id)
+    assert type(got).__name__ == "RecsysArch"
+    assert (got.arch_id, got.kind, got.family, got.shapes) == \
+        (want.arch_id, want.kind, want.family, want.shapes)
+    tc, jc = got.cfg, want.cfg
+    assert [f.name for f in fields(tc)] == [f.name for f in fields(jc)]
+    for f in fields(tc):
+        a, b = getattr(tc, f.name), getattr(jc, f.name)
+        if isinstance(a, torch.dtype):
+            assert str(a).removeprefix("torch.") == _jax_dtype_name(b), f.name
+        else:
+            assert a == b, f.name
+    if got.kind == "dlrm":
+        assert tc.total_rows == jc.total_rows == 204_185_088
+        assert np.array_equal(tc.offsets, jc.offsets)
 
 
 @pytest.mark.parametrize("arch_id", UNPORTED)
