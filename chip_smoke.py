@@ -22,6 +22,7 @@
                                            # 7) alone, ~2 min
     python3 chip_smoke.py --recsys-only    # the recsys path (phase 7b)
                                            # alone
+    python3 chip_smoke.py --gnn-only       # the GNN path (phase 7c) alone
 
 Phases, each printing its own lines; the first failed check exits non-zero:
 
@@ -250,6 +251,29 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      printed: DLRM's fields capped at ``DLRM_ROW_CAP`` rows in (b)
      (Criteo-1TB's 104.5 GB of float32 tables exceed the card), the
      two-tower's train batch ``TWOTOWER_BATCH``, and the tables in (a);
+  7c. the GNN path (:func:`gnn_phase`; also alone by ``--gnn-only``),
+     which launches none of the five kernels either: (a) SchNet at its
+     published widths (3 interactions, d_hidden 64, 300 RBFs, cutoff 10)
+     with the regression head over 8 graphs and with the 47-class head, on
+     a graph of ``GNN_AB`` nodes and edges, unchunked and in 4 edge
+     chunks, float32 with TF32 off, drawn once on the card and copied to
+     the CPU: the outputs and loss within ``GNN_TOL`` of the CPU's largest
+     |value|, each gradient leaf within ``GNN_GRAD_TOL`` of its max |g|,
+     one AdamW update from the same gradients within ``GNN_OPT_TOL``, and
+     ``compress_int8``/``ef_compress_tree`` of the same gradients bit for
+     bit; (c) molecule (3,840 nodes, 8,192 edges, 128 graphs) and
+     full_graph_sm (2,708 nodes, 10,556 edges, 1,433 features, 47
+     classes) at their configs, ``GNN_SHAPE_STEPS`` AdamW steps through
+     ``repro_torch.launch.train.train_gnn``, finite losses and each step's
+     ms; (b) ogb_products at full scale: ``synthetic_power_law`` at
+     2,449,029 nodes and degree ``OGB_DEGREE`` (drawn on a thread while
+     (a) and (c) run), its first 61,859,140 edges padded to 61,859,328,
+     ``GNNArch.cfg_for``'s 16 checkpointed edge chunks, ``GNN_STEPS``
+     AdamW steps on the one batch repeated, every loss finite and
+     applied; its median ms beside the compute bound (``GNNArch.flops``
+     over 67 TFLOP/s float32), the peak memory, the generator's largest
+     in-degree and its share, and one step under ``torch.profiler`` (busy
+     ms, idle share, the five longest kernels);
   8. Path A, the variable-growth kernel backend: the first
      ``TRIANGLE_DOCS`` documents of the WSJ1-like stream (cut to 6,144
      for the tier, fleet, mesh and LM phases) into ``Engine(B=64,
@@ -293,7 +317,8 @@ to its freeze and deals the fleet's documents into two host indexes, and
 runs phase 5 alone.
 ``--lm-only`` builds nothing (the LM path launches no hand-written kernel)
 and runs phase 6 alone; ``--train-only`` builds nothing and runs phase 7
-alone; ``--recsys-only`` builds nothing and runs phase 7b alone.
+alone; ``--recsys-only`` builds nothing and runs phase 7b alone;
+``--gnn-only`` builds nothing and runs phase 7c alone.
 ``--fused-only PT`` builds only ``fused_query`` and times it on phase 3's
 first prepared batch of 32 queries per mode, read from PT, or first
 written there from a Const engine built as phase 3 builds it (a CRC of
@@ -4142,6 +4167,433 @@ def recsys_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 7c: the GNN path
+# --------------------------------------------------------------------------
+
+GNN_AB = (2_000, 4_096)     # (a): nodes and edges of the comparison graphs
+GNN_AB_GRAPHS = 8           # (a): the regression head's graphs
+GNN_AB_CHUNKS = 4           # (a): edge chunks of the chunked cases
+GNN_TOL = 1e-5              # (a): outputs and loss: max |card - CPU| over
+#                             the CPU's max |value|, float32
+GNN_GRAD_TOL = 1e-4         # (a): each gradient leaf, of its max |g|
+GNN_OPT_TOL = 1e-6          # (a): AdamW from the same gradients, per leaf
+GNN_STEPS = 4               # (b): AdamW steps on one batch repeated
+GNN_SHAPE_STEPS = 2         # (c): AdamW steps at molecule and full_graph_sm
+GNN_LR = 1e-3               # the reference's GNN rate (GNNArch.build)
+OGB_DEGREE = 26             # (b): synthetic_power_law draws n x 26 =
+#                             63,674,754 edges; the first 61,859,140 in
+#                             COO order are kept (ogbn-products' count)
+GNN_DEVICE = "cuda"
+
+
+def _gnn_batch(shape_id: str, cfg, seed: int = 0) -> dict:
+    """A numpy batch at ``shape_id``'s counts, padded to 512 as the
+    reference's ``GNNArch.build`` pads them (the padding masked):
+    molecule's 128 graphs of 30 nodes, each with 64 edges inside it;
+    full_graph_sm's graph from ``synthetic_power_law`` (degree 4, its
+    first 10,556 edges).  Features N(0, 1), distances uniform on [0,
+    cutoff), labels uniform over the classes, targets N(0, 1)."""
+    from repro_torch.configs.common import GNN_SHAPES, _pad512
+    from repro_torch.data.graph import edges_coo, synthetic_power_law
+    s = GNN_SHAPES[shape_id]
+    N, E = s["n_nodes"], s["n_edges"]
+    Np, Ep = _pad512(N), _pad512(E)
+    rng = np.random.default_rng(seed)
+    src, dst = np.zeros(Ep, np.int32), np.zeros(Ep, np.int32)
+    if shape_id == "molecule":
+        G = s["n_graphs"]
+        per_n, per_e = N // G, E // G
+        base = np.repeat(np.arange(G) * per_n, per_e)
+        src[:E] = base + rng.integers(0, per_n, E)
+        dst[:E] = base + rng.integers(0, per_n, E)
+    else:
+        g = synthetic_power_law(N, 4, seed=seed)
+        a, b = edges_coo(g)
+        src[:E], dst[:E] = a[:E], b[:E]
+    mask = np.zeros(Np, np.float32)
+    mask[:N] = 1
+    out = {"node_feat": rng.standard_normal((Np, cfg.d_feat)).astype(
+               np.float32),
+           "src": src, "dst": dst,
+           "dist": (rng.random(Ep) * cfg.cutoff).astype(np.float32),
+           "edge_mask": np.arange(Ep) < E, "node_mask": mask}
+    if cfg.n_out > 1:
+        out["labels"] = rng.integers(0, cfg.n_out, Np).astype(np.int32)
+    else:
+        out["graph_ids"] = (np.arange(Np) // (N // s["n_graphs"])).clip(
+            0, s["n_graphs"] - 1).astype(np.int32)
+        out["target"] = rng.standard_normal(s["n_graphs"]).astype(np.float32)
+    return out
+
+
+def gnn_against_cpu(classify: bool, chunks: int) -> dict:
+    """Phase 7c (a): SchNet at its published widths (3 interactions,
+    d_hidden 64, 300 RBFs, cutoff 10) with the 47-class head and
+    ogb_products' 100 features, or the regression head over
+    ``GNN_AB_GRAPHS`` graphs and molecule's 16 features; a graph of
+    ``GNN_AB`` nodes and edges, unchunked or in ``chunks`` edge chunks;
+    float32 (TF32 off), drawn once on the card and copied to the CPU.  The
+    outputs, the loss and every gradient leaf of one ``make_train_step``
+    step on both, one AdamW update from the CPU's gradients on both, and
+    ``compress_int8``/``ef_compress_tree`` of the CPU's gradients on both,
+    bit for bit."""
+    import torch
+    from dataclasses import replace
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.compression import (ef_compress_tree,
+                                                     ef_init)
+    from repro_torch.models import gnn as gnn_mod
+    from repro_torch.optim import adamw_init, adamw_update
+    t0 = time.perf_counter()
+    N, E = GNN_AB
+    G = 1 if classify else GNN_AB_GRAPHS
+    cfg = replace(get_arch("schnet").base_cfg,
+                  d_feat=100 if classify else 16,
+                  n_out=47 if classify else 1,
+                  edge_chunk=E // chunks if chunks > 1 else None)
+    rng = np.random.default_rng(7)
+    b = {"node_feat": rng.standard_normal((N, cfg.d_feat)).astype(
+             np.float32),
+         "src": rng.integers(0, N, E).astype(np.int32),
+         "dst": rng.integers(0, N, E).astype(np.int32),
+         "dist": (rng.random(E) * cfg.cutoff).astype(np.float32),
+         "edge_mask": rng.random(E) < 0.95,
+         "node_mask": np.ones(N, np.float32)}
+    if classify:
+        b["labels"] = rng.integers(0, 47, N).astype(np.int32)
+    else:
+        b["graph_ids"] = np.sort(rng.integers(0, G, N)).astype(np.int32)
+        b["target"] = rng.standard_normal(G).astype(np.float32)
+    card = gnn_mod.init_params(cfg, GNN_DEVICE, torch.Generator(
+        device=GNN_DEVICE).manual_seed(1))
+    host = tree.tree_map(lambda t: t.cpu(), card)
+    runs = {}
+    for name, params in (("card", card), ("cpu", host)):
+        dev = tree.leaves(params)[0].device
+        batch = _on(b, dev)
+        with torch.no_grad():
+            out = gnn_mod.forward(params, batch, cfg)
+        store: dict = {}
+        _, _, loss, _ = gnn_mod.make_train_step(
+            cfg, _grad_capture(store), G)(params, None, batch)
+        runs[name] = {"out": out, "loss": loss, "grads": store["grads"]}
+    c, h = runs["card"], runs["cpu"]
+    errs = {k: _rel_err(c[k].reshape(-1), h[k].reshape(-1))
+            for k in ("out", "loss")}
+    grads = h["grads"]
+    grads_card = tree.tree_map(lambda t: t.to(GNN_DEVICE), grads)
+    grad_errs = [_leaf_err(g, w) for g, w in
+                 zip(tree.leaves(c["grads"]), tree.leaves(grads_card))]
+    label = (f"{'47-class' if classify else 'regression'} head, "
+             f"{f'{chunks} edge chunks' if chunks > 1 else 'unchunked'}")
+    if max(errs.values()) > GNN_TOL:
+        fail(f"[gnn] (a) {label}: card against CPU {errs} > {GNN_TOL}")
+    if max(grad_errs) > GNN_GRAD_TOL:
+        fail(f"[gnn] (a) {label}: gradient leaves card against CPU "
+             f"{grad_errs} > {GNN_GRAD_TOL} of each leaf's max |g|")
+    del runs, c, h
+    done = {}
+    for name, params, g in (("card", card, grads_card), ("cpu", host, grads)):
+        state = adamw_init(params)
+        adamw_update(params, g, state, GNN_LR)
+        done[name] = (params, state)
+    opt_errs = [_leaf_err(a, b) for a, b in
+                zip(tree.leaves(done["card"]), tree.leaves(done["cpu"]))]
+    if max(opt_errs) > GNN_OPT_TOL:
+        fail(f"[gnn] (a) {label}: one AdamW update from the same "
+             f"gradients, card against CPU {opt_errs} > {GNN_OPT_TOL}")
+    # int8 compression with error feedback, two steps, of the same tree
+    packs = {}
+    for name, g in (("card", grads_card), ("cpu", grads)):
+        ef = ef_init(g)
+        q1, ef = ef_compress_tree(g, ef)
+        q2, ef = ef_compress_tree(g, ef)
+        packs[name] = [t.cpu() for t in tree.leaves((q1, q2, ef.residual))]
+    diff = [i for i, (a, b) in enumerate(zip(packs["card"], packs["cpu"]))
+            if a.dtype != b.dtype or not torch.equal(a, b)]
+    if diff:
+        fail(f"[gnn] (a) {label}: compress_int8/ef_compress_tree card "
+             f"against CPU differ in leaves {diff}")
+    del card, host, grads, grads_card, done, packs
+    _free_card()
+    wall = time.perf_counter() - t0
+    say(f"[gnn] (a) SchNet at its published widths, {label}, {N:,} nodes, "
+        f"{E:,} edges, float32 (drawn on the card, copied to the CPU; TF32 "
+        f"off), card against CPU: outputs {errs['out']:.3e}, loss "
+        f"{errs['loss']:.3e} (tolerance {GNN_TOL}); the {len(grad_errs)} "
+        f"gradient leaves within {max(grad_errs):.3e} of each leaf's max "
+        f"|g| (tolerance {GNN_GRAD_TOL}); one AdamW update from the same "
+        f"gradients within {max(opt_errs):.3e} (tolerance {GNN_OPT_TOL}); "
+        f"two steps of ef_compress_tree over the same gradients: q, scales "
+        f"and residuals bit for bit; {wall:.1f} s")
+    return {**errs, "grad": max(grad_errs), "opt": max(opt_errs), "s": wall}
+
+
+class _OgbDraw:
+    """ogb_products' graph drawn on a thread (numpy releases the
+    interpreter lock in its samplers and sorts), so that the draw overlaps
+    the phase's other cases: ``synthetic_power_law(2,449,029,
+    OGB_DEGREE)``'s COO edges cut to the shape's 61,859,140."""
+
+    def __init__(self):
+        import threading
+        self.out: dict = {}
+        self.thread = threading.Thread(target=self._draw, daemon=True)
+        self.thread.start()
+
+    def _draw(self):
+        from repro_torch.configs.common import GNN_SHAPES
+        from repro_torch.data.graph import edges_coo, synthetic_power_law
+        try:
+            s = GNN_SHAPES["ogb_products"]
+            t0 = time.perf_counter()
+            g = synthetic_power_law(s["n_nodes"], OGB_DEGREE, seed=0)
+            src, dst = edges_coo(g)
+            E = s["n_edges"]
+            self.out = {"src": src[:E], "dst": dst[:E], "drawn": g.n_edges,
+                        "s": time.perf_counter() - t0}
+        except BaseException as e:      # re-raised by result()
+            self.out = {"error": e}
+
+    def result(self) -> dict:
+        self.thread.join()
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out
+
+
+def gnn_ogb(draw: "_OgbDraw") -> dict:
+    """Phase 7c (b): SchNet at ogb_products' full scale on the card
+    (``GNNArch.cfg_for``: 100 features, 47 classes, 16 checkpointed
+    chunks of 3,866,208 edges): the graph from :class:`_OgbDraw`, nodes
+    and edges padded to 512 as the reference's ``GNNArch.build`` pads
+    them, features N(0, 1), distances uniform on [0, cutoff) and labels
+    uniform over the classes drawn on the card; ``GNN_STEPS`` AdamW steps
+    through ``train_gnn`` and the Trainer on the one batch repeated, every
+    loss finite and applied.  Its median ms beside the compute bound
+    (``GNNArch.flops`` over 67 TFLOP/s float32), the peak memory, and one
+    more step under ``torch.profiler``."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import GNN_SHAPES, _pad512
+    from repro_torch.launch.train import train_gnn
+    t0 = time.perf_counter()
+    arch = get_arch("schnet")
+    cfg = arch.cfg_for("ogb_products")
+    s = GNN_SHAPES["ogb_products"]
+    N, E = s["n_nodes"], s["n_edges"]
+    Np, Ep = _pad512(N), _pad512(E)
+    g = draw.result()
+    wait = time.perf_counter() - t0
+    indeg = np.bincount(g["dst"], minlength=N)
+    hot = int(indeg.argmax())
+    gen = torch.Generator(device=GNN_DEVICE).manual_seed(0)
+    dev = GNN_DEVICE
+
+    def pad(a, n, fill=0):
+        t = torch.full((n,), fill, dtype=torch.int32, device=dev)
+        t[:len(a)] = torch.from_numpy(a).to(dev)
+        return t
+
+    node_mask = torch.zeros(Np, device=dev)
+    node_mask[:N] = 1
+    batch = {"node_feat": torch.randn((Np, cfg.d_feat), generator=gen,
+                                      device=dev),
+             "src": pad(g["src"], Ep), "dst": pad(g["dst"], Ep),
+             "dist": torch.rand(Ep, generator=gen, device=dev) * cfg.cutoff,
+             "edge_mask": torch.arange(Ep, device=dev) < E,
+             "node_mask": node_mask,
+             "labels": torch.randint(0, cfg.n_out, (Np,), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    batch_gb = sum(t.numel() * t.element_size() for t in batch.values()) / 1e9
+
+    class OneBatch:
+        def batch_at(self, step):
+            return batch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ts = time.perf_counter()
+    run = train_gnn(arch, GNN_STEPS, shape="ogb_products", data=OneBatch(),
+                    device=dev, lr=GNN_LR, log_every=0,
+                    name="schnet ogb_products")
+    wall = time.perf_counter() - ts
+    trainer = run["trainer"]
+    m = trainer.metrics
+    losses = [x["loss"] for x in m]
+    gnorms = [x["gnorm"] for x in m]
+    if not all(np.isfinite(losses + gnorms)):
+        fail(f"[gnn] (b) ogb_products: losses {losses}, gnorms {gnorms}: "
+             f"not finite")
+    if int(trainer.opt_state.step) != GNN_STEPS:
+        fail(f"[gnn] (b) ogb_products: {int(trainer.opt_state.step)} of "
+             f"{GNN_STEPS} steps were applied")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.median([x["sec"] for x in m[1:]])) * 1e3
+    flops = arch.flops("ogb_products")
+    bound = flops / F32_FLOPS * 1e3
+    n_params = sum(t.numel() for t in tree.leaves(trainer.params))
+    say(f"[gnn] (b) ogb_products at full scale: {N:,} nodes (padded to "
+        f"{Np:,}), synthetic_power_law's {g['drawn']:,} edges at degree "
+        f"{OGB_DEGREE} cut to the first {E:,} in COO order and padded to "
+        f"{Ep:,} ({cfg.edge_chunk:,} a chunk, {Ep // cfg.edge_chunk} "
+        f"checkpointed chunks), {cfg.d_feat} features, {cfg.n_out} classes, "
+        f"{n_params:,} parameters; the draw took {g['s']:.1f} s on a thread "
+        f"({wait:.1f} s of it waited for here), the batch {batch_gb:.2f} GB "
+        f"on the card; the generator's largest in-degree {indeg[hot]:,} "
+        f"(node {hot}), {indeg[hot] / E:.3f} of the edges (zipf(1.5) mod N: "
+        f"a hot spot of the JAX package's generator, not of ogbn-products; "
+        f"segment_sum's index_add_ adds its messages onto that one row)")
+    say(f"[gnn] (b) {GNN_STEPS} AdamW steps (lr {GNN_LR}, moments float32) "
+        f"through train_gnn and the Trainer on the one batch repeated: "
+        f"losses " + ", ".join(f"{x:.4f}" for x in losses) + "; gnorms "
+        + ", ".join(f"{x:.3f}" for x in gnorms)
+        + f"; every step applied; {wall:.1f} s")
+    say(f"[time] gnn ogb_products train step: {ms:.1f} ms median of steps "
+        f"2-{GNN_STEPS} on the host's clock (each ending in a synchronize; "
+        f"step 1 {m[0]['sec'] * 1e3:.1f} ms); compute bound {bound:.1f} ms "
+        f"(GNNArch.flops {flops:.4g} over 67 TFLOP/s float32), ms/bound "
+        f"{ms / bound:.2f}; peak memory {peak:.2f} GB; {card_line()}")
+    out = {"ms": ms, "bound_ms": bound, "peak_gb": peak, "losses": losses,
+           "hot_share": indeg[hot] / E}
+    prof = train_profile(lambda: trainer.train_step(
+        trainer.params, trainer.opt_state, batch))
+    out["profile"] = prof
+    busy = prof["busy_ms"]
+    if busy is None:
+        say(f"[time] gnn ogb_products under torch.profiler: no device time "
+            f"recorded; {prof['wall_ms']:.1f} ms a step")
+    else:
+        out["idle"] = 1 - busy / ms
+        say(f"[time] gnn ogb_products train step under torch.profiler "
+            f"(CUDA activity): {prof['wall_ms']:.1f} ms, the card busy "
+            f"{busy:.1f} ms in {prof['kernels']} kernels: idle share "
+            f"{out['idle']:.3f} of the unprofiled step's {ms:.1f} ms; most "
+            f"device time: " + "; ".join(
+                f"{name} {t:.1f} ms" for name, t in prof["top"]))
+    del run, trainer
+    out["hot_row"] = _hot_row_cost(batch["dst"][:cfg.edge_chunk], Np,
+                                   cfg.d_hidden, gen)
+    del batch
+    _free_card()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _hot_row_cost(dst, n: int, width: int, gen) -> dict:
+    """How much the generator's hot row costs ``segment_sum``: one chunk's
+    messages, (len(dst), width) float32, summed into ``n`` rows by the
+    chunk's destinations and by as many uniform ones, in turns (median
+    of 5 a side, CUDA events)."""
+    import torch
+    from repro_torch.sparse.ops import segment_sum
+    msg = torch.randn((len(dst), width), generator=gen, device=dst.device)
+    uniform = torch.randint(0, n, (len(dst),), generator=gen,
+                            device=dst.device, dtype=dst.dtype)
+    times = {"graph": [], "uniform": []}
+    for _ in range(5):
+        for name, ids in (("graph", dst), ("uniform", uniform),
+                          ("uniform", uniform), ("graph", dst)):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            segment_sum(msg, ids, n)
+            b.record()
+            torch.cuda.synchronize()
+            times[name].append(a.elapsed_time(b))
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    share = float((dst == int(torch.bincount(dst.long()).argmax())).float()
+                  .mean())
+    say(f"[time] gnn segment_sum of one chunk's messages ({len(dst):,} x "
+        f"{width} float32 into {n:,} rows): {ms['graph']:.3f} ms with the "
+        f"graph's destinations (its most frequent one takes {share:.3f} of "
+        f"them), {ms['uniform']:.3f} ms with uniform ones (medians of 10, "
+        f"in turns, CUDA events); {card_line()}")
+    del msg, uniform
+    return {**ms, "share": share}
+
+
+def gnn_shape(shape_id: str) -> dict:
+    """Phase 7c (c): SchNet at ``shape_id``'s config and counts
+    (:func:`_gnn_batch`), ``GNN_SHAPE_STEPS`` AdamW steps through
+    ``train_gnn``: finite losses, each step's ms."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.launch.train import train_gnn
+    t0 = time.perf_counter()
+    arch = get_arch("schnet")
+    cfg = arch.cfg_for(shape_id)
+    s = GNN_SHAPES[shape_id]
+    b = _gnn_batch(shape_id, cfg)
+
+    class OneBatch:
+        def batch_at(self, step):
+            return b
+
+    torch.cuda.reset_peak_memory_stats()
+    run = train_gnn(arch, GNN_SHAPE_STEPS, shape=shape_id, data=OneBatch(),
+                    n_graphs=s.get("n_graphs", 1), device=GNN_DEVICE,
+                    lr=GNN_LR, log_every=0, name=f"schnet {shape_id}")
+    m = run["trainer"].metrics
+    losses = [x["loss"] for x in m]
+    if not np.isfinite(losses).all():
+        fail(f"[gnn] (c) {shape_id}: losses {losses} not finite")
+    step_ms = [x["sec"] * 1e3 for x in m]
+    bound = arch.flops(shape_id) / F32_FLOPS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"[gnn] (c) {shape_id} ({s['n_nodes']:,} nodes, {s['n_edges']:,} "
+        f"edges, {cfg.d_feat} features, "
+        + (f"{cfg.n_out} classes" if cfg.n_out > 1
+           else f"{s['n_graphs']} graphs, regression")
+        + f"; padded to 512): {GNN_SHAPE_STEPS} AdamW steps through "
+        f"train_gnn, losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + "; step ms " + ", ".join(f"{x:.1f}" for x in step_ms)
+        + f" (the first with its allocations), compute bound {bound:.4f} "
+        f"ms; peak memory {peak:.2f} GB; {card_line()}")
+    del run
+    _free_card()
+    return {"ms": step_ms, "bound_ms": bound, "losses": losses,
+            "s": time.perf_counter() - t0}
+
+
+def gnn_phase() -> dict:
+    """Phase 7c, the GNN path: (a) card against CPU at the published
+    widths, both heads, unchunked and chunked; (c) molecule and
+    full_graph_sm at their shapes; (b) ogb_products at full scale, its
+    graph drawn on a thread while (a) and (c) run.  The five kernels'
+    counts are set to 0 before it and read after: the path launches none
+    of them."""
+    import importlib
+    from repro_torch.kernels import build
+    counters = {name: importlib.import_module(
+        f"repro_torch.kernels.{name}.kernel") for name in build.SOURCES}
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    draw = _OgbDraw()
+    out = {"parity": {f"{'class' if c else 'reg'}-{k}":
+                      gnn_against_cpu(c, k)
+                      for c in (False, True) for k in (1, GNN_AB_CHUNKS)},
+           "shapes": {sid: gnn_shape(sid)
+                      for sid in ("molecule", "full_graph_sm")},
+           "ogb": gnn_ogb(draw)}
+    launched = {name: mod.launches for name, mod in counters.items()}
+    if any(launched.values()):
+        fail(f"[gnn] the GNN path launched {launched}")
+    out["s"] = time.perf_counter() - t0
+    say(f"[gnn] phase 7c took {out['s']:.1f} s; launches of the five "
+        f"hand-written kernels during it: {launched} (SchNet is torch ops, "
+        f"index_add_ and cuBLAS products; it reaches no Pallas kernel in "
+        f"the reference); not run: minibatch_lg (the JAX package defines "
+        f"its shapes but no code that flattens sampled blocks into its "
+        f"batch)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=CONST_DOCS,
@@ -4191,6 +4643,10 @@ def main() -> int:
     ap.add_argument("--recsys-only", action="store_true",
                     help="run phase 7b, the recsys path, alone (no kernel "
                          "is built: the path launches none), and stop: no "
+                         "other path is driven")
+    ap.add_argument("--gnn-only", action="store_true",
+                    help="run phase 7c, the GNN path, alone (no kernel is "
+                         "built: the path launches none), and stop: no "
                          "other path is driven")
     ap.add_argument("--fused-only", type=Path, metavar="PT",
                     help="time the fused kernel alone on the main path's "
@@ -4263,6 +4719,13 @@ def main() -> int:
         say(f"[card] {card_line()}")
         say("[done] --recsys-only: no other path was driven")
         return 0
+    if args.gnn_only:
+        gnn_phase()
+        if "jax" in sys.modules:
+            fail("jax was imported")
+        say(f"[card] {card_line()}")
+        say("[done] --gnn-only: no other path was driven")
+        return 0
     if args.mesh_only:
         build.build_all(["dvbyte_decode"])
         m2 = const_frozen(args.docs,
@@ -4311,6 +4774,7 @@ def main() -> int:
     lm_phase()
     train_phase()
     recsys_phase()
+    gnn_phase()
     tri = triangle_path(TRIANGLE_DOCS, row["index"])
     if "jax" in sys.modules:
         fail("jax was imported")

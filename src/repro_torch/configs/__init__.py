@@ -2,10 +2,10 @@
 ``get_arch(<id>)`` resolves the JAX package's ids and aliases
 (``src/repro/configs/__init__.py``) for the architectures the port has.
 
-The five LM configurations, the four recsys ones (dlrm-mlperf, sasrec,
-din, two-tower-retrieval) and ``paper_index`` resolve to their ``ARCH``.
-schnet is not ported yet: ``get_arch`` raises a ``KeyError`` that says
-so.
+Every id resolves to its ``ARCH``: the five LM configurations, schnet,
+the four recsys ones (dlrm-mlperf, sasrec, din, two-tower-retrieval) and
+``paper_index``.  An id the port lacked would raise a ``KeyError`` that
+says it is not ported yet; none is left.
 """
 
 from importlib import import_module
@@ -41,6 +41,7 @@ PORTED = frozenset({
     "granite_3_2b",
     "llama3_2_3b",
     "mistral_large_123b",
+    "schnet",
     "dlrm_mlperf",
     "sasrec",
     "din",

@@ -1,22 +1,25 @@
-"""The LM and recsys families' shapes and architecture records.
+"""The LM, GNN and recsys families' shapes and architecture records.
 
 Ported from the JAX package's ``src/repro/configs/common.py``:
-:data:`LM_SHAPES` and :class:`LMArch` with its analytic ``flops``, and
-:data:`REC_SHAPES` and :class:`RecsysArch` with the batch shapes of each
-recsys model, its loss, serve and init functions, and its analytic
-``flops``.  The reference's ``LMArch.build`` and ``RecsysArch.build``,
-which lower a JAX ``Cell`` with shardings for its HLO dry-run, and
-``RecsysArch._pshard``, the tables' mesh specs, are not ported.
+:data:`LM_SHAPES` and :class:`LMArch` with its analytic ``flops``;
+:data:`GNN_SHAPES`, :func:`_pad512` and :class:`GNNArch` with
+``cfg_for`` (the shape's feature width, head and edge chunks) and its
+analytic ``flops``; and :data:`REC_SHAPES` and :class:`RecsysArch` with
+the batch shapes of each recsys model, its loss, serve and init
+functions, and its analytic ``flops``.  The reference's ``build``
+methods, which lower a JAX ``Cell`` with shardings for its HLO dry-run,
+and ``RecsysArch._pshard``, the tables' mesh specs, are not ported.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
 
 from ..models import recsys as rec_mod
+from ..models.gnn import SchNetConfig
 from ..models.lm import LMConfig
 
 LM_SHAPES = {
@@ -50,6 +53,58 @@ class LMArch:
         toks = s["batch"]
         attn = 4.0 * cfg.n_layers * cfg.n_heads * cfg.d_head * s["seq"] * toks
         return 2.0 * n_act * toks + attn
+
+
+# ==========================================================================
+# GNN family (SchNet)
+# ==========================================================================
+
+def _pad512(n: int) -> int:
+    """Round node/edge counts up to 512, as the reference pads them for
+    its meshes (the padding is masked)."""
+    return (n + 511) // 512 * 512
+
+
+GNN_SHAPES = {
+    "full_graph_sm": dict(n_nodes=2708, n_edges=10556, d_feat=1433,
+                          classify=47, kind="train"),
+    "minibatch_lg": dict(n_nodes=184320, n_edges=179200, d_feat=602,
+                         classify=41, kind="train"),
+    "ogb_products": dict(n_nodes=2449029, n_edges=61859140, d_feat=100,
+                         classify=47, kind="train"),
+    "molecule": dict(n_nodes=3840, n_edges=8192, d_feat=16, classify=0,
+                     n_graphs=128, kind="train"),
+}
+
+
+@dataclass
+class GNNArch:
+    arch_id: str
+    base_cfg: SchNetConfig
+    family: str = "gnn"
+    shapes: tuple = tuple(GNN_SHAPES)
+
+    def cfg_for(self, shape_id: str) -> SchNetConfig:
+        """The config at ``shape_id``: its feature width, its head (47 or
+        41 classes, or the regression's 1) and, past 4 Mi padded edges, 16
+        edge chunks."""
+        s = GNN_SHAPES[shape_id]
+        e_pad = _pad512(s["n_edges"])
+        # chunk the cfconv at >4M edges (ogb_products: 74 GB rbf otherwise)
+        chunk = e_pad // 16 if e_pad > (1 << 22) else None
+        return replace(self.base_cfg, d_feat=s["d_feat"],
+                       n_out=(s["classify"] or 1), edge_chunk=chunk)
+
+    def flops(self, shape_id: str) -> float:
+        """The reference's analytic flops of one train step at
+        ``shape_id`` (the real, unpadded counts)."""
+        s = GNN_SHAPES[shape_id]
+        c = self.base_cfg
+        e, n, dh, nr = s["n_edges"], s["n_nodes"], c.d_hidden, c.n_rbf
+        per_layer = 2.0 * e * (nr * dh + dh * dh) + 2.0 * n * 2 * dh * dh
+        proj = 2.0 * n * s["d_feat"] * dh
+        fb = 3.0  # fwd + bwd
+        return fb * (c.n_interactions * per_layer + proj)
 
 
 # ==========================================================================

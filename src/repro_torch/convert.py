@@ -13,7 +13,8 @@ JAX: a caller converts a JAX object's fields with ``np.asarray`` first.
   :class:`~repro_torch.models.recsys.TwoTower` holding the parameters of
   the reference's ``twotower_init`` pytree;
 * :func:`recsys_from_jax` carries a recsys model's parameter tree (DLRM,
-  SASRec, DIN or two-tower) across as the port's tree of tensors;
+  SASRec, DIN or two-tower) across as the port's tree of tensors, and
+  :func:`gnn_from_jax` SchNet's;
 * :func:`lm_from_jax` builds a port :class:`~repro_torch.models.lm.LM`
   holding the parameters of the reference's LM ``init_params`` pytree
   (float32 or bfloat16 leaves);
@@ -118,6 +119,17 @@ def recsys_from_jax(params, device=None):
     device = resolve_device(device)
     return tree.tree_map(
         lambda a: _leaf(a).to(device=device, dtype=torch.float32), params)
+
+
+def gnn_from_jax(params: dict, device=None) -> dict:
+    """The port's SchNet parameter tree holding the reference's: its
+    ``init_params`` pytree with numpy arrays as leaves (``embed_in``,
+    ``read1``, ``read2`` and ``inter``, whose leaves are stacked on a
+    leading axis even for one interaction).  Each leaf becomes a tensor of
+    its dtype on ``device`` (None means the card, see
+    :func:`resolve_device`)."""
+    device = resolve_device(device)
+    return tree.tree_map(lambda a: _leaf(a).to(device), params)
 
 
 def _leaf(a) -> torch.Tensor:

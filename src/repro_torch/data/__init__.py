@@ -1,2 +1,2 @@
 """Synthetic corpora calibrated to the paper's collections, the LM token
-pipeline and the recsys batches."""
+pipeline, the recsys batches and the graph substrate."""

@@ -5,16 +5,19 @@ config of the selected architecture, wired through the production stack:
 config -> parameters drawn on the device -> AdamW -> fault-tolerant
 :class:`~repro_torch.train.Trainer` (checkpoint/restart, straggler log,
 NaN fuse) -> deterministic data pipeline.  For an LM id that is
-:func:`reduced_lm` on ``data/lm.py``'s ``TokenBatches``; for any recsys id
-it is the reference's reduced DLRM (:func:`reduced_dlrm`, whichever recsys
-model is named, as in the reference) on ``data/recsys.py``'s
-``RecsysBatches``.  It runs on the card unless ``--device`` names another
-torch device (``--device cpu`` here), and raises where there is no card.
+:func:`reduced_lm` on ``data/lm.py``'s ``TokenBatches``; for schnet, the
+gnn id, the reference's reduced SchNet (:func:`reduced_schnet`) on
+:class:`GraphBatches`, ``--batch`` small random graphs a step drawn as
+the reference draws them; for any recsys id it is the reference's reduced
+DLRM (:func:`reduced_dlrm`, whichever recsys model is named, as in the
+reference) on ``data/recsys.py``'s ``RecsysBatches``.  It runs on the
+card unless ``--device`` names another torch device (``--device cpu``
+here), and raises where there is no card.
 
-:func:`train_lm` and :func:`train_recsys` beside :func:`main` run any
-``LMConfig`` and any recsys architecture, the full widths too, as
-``launch/serve.py``'s ``serve_lm`` does for serving.  The ``gnn`` arch id
-raises the "not ported yet" ``KeyError`` of ``configs.get_arch``.
+:func:`train_lm`, :func:`train_gnn` and :func:`train_recsys` beside
+:func:`main` run any ``LMConfig``, SchNet config and recsys architecture,
+the full widths too, as ``launch/serve.py``'s ``serve_lm`` does for
+serving.
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ from __future__ import annotations
 import argparse
 from dataclasses import replace
 
+import numpy as np
 import torch
 
 from ..core.device_index import resolve_device
+from ..models.gnn import SchNetConfig
 from ..models.lm import LMConfig, MoEConfig
 from ..models.recsys import DLRMConfig
 from ..optim import adamw_init, adamw_update
@@ -78,6 +83,76 @@ def train_lm(cfg: LMConfig, steps: int, *, batch: int, seq: int,
     trainer = _run(lambda u: lm_mod.make_train_step(cfg, u), params, opt,
                    data, steps, device=device, lr=lr, ckpt_dir=ckpt_dir,
                    ckpt_every=ckpt_every, log_every=log_every, log_fn=log_fn)
+    return {"trainer": trainer, "line": _line(name or cfg.name, trainer)}
+
+
+def reduced_schnet() -> SchNetConfig:
+    """The reference's reduced SchNet (``src/repro/launch/train.py``'s gnn
+    branch): 2 interactions, d_hidden 32, 16 RBFs, d_feat 16, the
+    regression head."""
+    return SchNetConfig(n_interactions=2, d_hidden=32, n_rbf=16, d_feat=16,
+                        n_out=1)
+
+
+class GraphBatches:
+    """The reference's gnn branch's batches: at step ``i``, ``n_graphs``
+    graphs of 16 nodes and 40 edges each on average, drawn from
+    ``np.random.default_rng(i)`` in the reference's order (features
+    N(0, 1), sources and destinations uniform over all N = 16 n_graphs
+    nodes, distances uniform on [0, 10)), node ``v`` in graph ``v mod
+    n_graphs``, every target 0."""
+
+    def __init__(self, n_graphs: int):
+        self.n_graphs = n_graphs
+
+    def batch_at(self, i: int) -> dict:
+        B = self.n_graphs
+        N, E = B * 16, B * 40
+        r = np.random.default_rng(i)
+        return {
+            "node_feat": r.standard_normal((N, 16)).astype(np.float32),
+            "src": r.integers(0, N, E).astype(np.int32),
+            "dst": r.integers(0, N, E).astype(np.int32),
+            "dist": (r.random(E) * 10).astype(np.float32),
+            "edge_mask": np.ones(E, bool),
+            "node_mask": np.ones(N, np.float32),
+            "graph_ids": (np.arange(N) % B).astype(np.int32),
+            "target": np.zeros(B, np.float32)}
+
+
+def train_gnn(cfg_or_arch, steps: int, *, data, n_graphs: int = 1,
+              shape: str | None = None, device=None, lr=1e-3, seed: int = 0,
+              ckpt_dir: str | None = None, ckpt_every: int = 10,
+              log_every: int = 10, log_fn=print,
+              name: str | None = None) -> dict:
+    """Train SchNet for ``steps`` steps through the :class:`Trainer`, as
+    :func:`train_lm` trains an LM.
+
+    ``cfg_or_arch`` is a ``SchNetConfig`` or a
+    :class:`~repro_torch.configs.common.GNNArch` (its ``cfg_for(shape)``,
+    or its base config where ``shape`` is None).  ``data`` has
+    ``batch_at(step)`` returning the batch with ``models.gnn.input_specs``'
+    keys, as numpy arrays or as tensors already on ``device``;
+    ``n_graphs`` is the regression head's graphs a batch.  The parameters
+    are drawn on ``device`` (None means the card) from a generator seeded
+    with ``seed``, the AdamW moments are float32, and ``lr`` is a float or
+    a function of the step counter.  Checkpoints, the synchronize that
+    ends each step on CUDA, ``name`` and the result are
+    :func:`train_lm`'s."""
+    from ..configs.common import GNNArch
+    from ..models import gnn as gnn_mod
+
+    cfg = cfg_or_arch
+    if isinstance(cfg, GNNArch):
+        cfg = cfg.cfg_for(shape) if shape else cfg.base_cfg
+    device = resolve_device(device)
+    params = gnn_mod.init_params(cfg, device, torch.Generator(
+        device=device).manual_seed(seed))
+    opt = adamw_init(params)
+    trainer = _run(lambda u: gnn_mod.make_train_step(cfg, u, n_graphs),
+                   params, opt, data, steps, device=device, lr=lr,
+                   ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                   log_every=log_every, log_fn=log_fn)
     return {"trainer": trainer, "line": _line(name or cfg.name, trainer)}
 
 
@@ -150,8 +225,8 @@ def _run(make_step, params, opt, data, steps: int, *, device, lr,
             torch.cuda.synchronize(device)
         return out
 
-    def batch_at(i):
-        return {k: torch.from_numpy(v).to(device)
+    def batch_at(i):    # numpy arrays are copied over, tensors there kept
+        return {k: torch.as_tensor(v, device=device)
                 for k, v in data.batch_at(i).items()}
 
     trainer = Trainer(step, params, opt, batch_at, ckpt_dir=ckpt_dir,
@@ -182,12 +257,16 @@ def main(argv=None):
                     help="the torch device (default the card)")
     args = ap.parse_args(argv)
     arch = get_arch(args.arch)
-    kw = dict(batch=args.batch, ckpt_dir=args.ckpt_dir, device=args.device,
-              name=args.arch)
+    kw = dict(ckpt_dir=args.ckpt_dir, device=args.device, name=args.arch)
     if arch.family == "lm":
-        out = train_lm(reduced_lm(arch.cfg), args.steps, seq=args.seq, **kw)
+        out = train_lm(reduced_lm(arch.cfg), args.steps, batch=args.batch,
+                       seq=args.seq, **kw)
+    elif arch.family == "gnn":
+        out = train_gnn(reduced_schnet(), args.steps, n_graphs=args.batch,
+                        data=GraphBatches(args.batch), **kw)
     else:       # recsys: the reduced DLRM whichever model is named
-        out = train_recsys(reduced_dlrm(), "dlrm", args.steps, **kw)
+        out = train_recsys(reduced_dlrm(), "dlrm", args.steps,
+                           batch=args.batch, **kw)
     print(out["line"])
     return out
 

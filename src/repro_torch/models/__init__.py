@@ -1,2 +1,3 @@
 """Models of the port: the recsys family (DLRM, SASRec, DIN and the
-two-tower retriever of hybrid retrieval) and the transformer LM family."""
+two-tower retriever of hybrid retrieval), the transformer LM family and
+SchNet, the GNN."""

@@ -1,4 +1,4 @@
-"""Embedding bags and segment sums, as the JAX package computes them.
+"""Embedding bags and segment reductions, as the JAX package computes them.
 
 The reference builds EmbeddingBag from a gather and segment reductions
 (``src/repro/sparse/ops.py``); the port keeps its two calling conventions
@@ -11,8 +11,16 @@ and its gather semantics, which differ from PyTorch's indexing:
   :func:`take_rows` does both, so a lookup past the table computes what
   the reference computes, forward and backward (a CUDA gather would
   otherwise assert on the card);
-* ``jax.ops.segment_sum`` drops elements whose segment id is out of range;
-  :func:`segment_sum` does too.
+* ``jax.ops.segment_sum`` and ``segment_max`` drop elements whose segment
+  id is out of range; :func:`segment_sum` and :func:`segment_max` do too,
+  and so do :func:`segment_mean` and :func:`segment_softmax`, built on
+  them as the reference builds its own.
+
+:func:`coalesce_edges` sorts edges by an exact int64 key.  The
+reference's key, ``dst.astype(jnp.int64) * n + src``, is int32 while JAX's
+x64 mode is off (its default) and wraps once ``dst * n`` reaches 2**31, so
+its order is not sorted by destination there; below that the two orders
+are equal.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     ids = torch.where(ids < 0, ids + rows, ids)
     out = table[ids.clamp(0, rows - 1)]
     if out.requires_grad:
-        inside = ((ids >= 0) & (ids < rows)).unsqueeze(-1)
+        inside = ((ids >= 0) & (ids < rows)).reshape(
+            *ids.shape, *(1,) * (table.dim() - 1))
         out.register_hook(lambda g: g * inside)
     return out
 
@@ -36,12 +45,61 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Sum of ``data``'s rows by segment id into ``num_segments`` rows;
-    out-of-range ids are dropped."""
+    out-of-range ids are dropped (added into a spare row that is cut off,
+    so nothing waits for the device to count them)."""
+    out = torch.zeros((num_segments + 1, *data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    return out.index_add_(0, _spare(segment_ids, num_segments),
+                          data)[:num_segments]
+
+
+def _spare(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``segment_ids`` as int64 with every out-of-range id replaced by
+    ``num_segments``, the spare row."""
     ids = segment_ids.long()
     keep = (ids >= 0) & (ids < num_segments)
-    out = torch.zeros((num_segments, *data.shape[1:]), dtype=data.dtype,
-                      device=data.device)
-    return out.index_add_(0, ids[keep], data[keep])
+    return torch.where(keep, ids, num_segments)
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Maximum of ``data``'s rows by segment id into ``num_segments`` rows,
+    as ``jax.ops.segment_max``: an empty segment holds the dtype's identity
+    (-inf for floats, the least int for ints), out-of-range ids are
+    dropped, and where several elements tie for a maximum its gradient is
+    split evenly among them (torch's ``amax`` does as JAX does)."""
+    ident = (-torch.inf if data.dtype.is_floating_point
+             else torch.iinfo(data.dtype).min)
+    out = torch.full((num_segments + 1, *data.shape[1:]), ident,
+                     dtype=data.dtype, device=data.device)
+    idx = _spare(segment_ids, num_segments).reshape(
+        -1, *(1,) * (data.dim() - 1)).expand_as(data)
+    return out.scatter_reduce(0, idx, data, "amax",
+                              include_self=False)[:num_segments]
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """Mean of ``data``'s rows by segment id: the segment sum over
+    ``max(count, 1)``, so an empty segment holds 0."""
+    tot = segment_sum(data, segment_ids, num_segments)
+    cnt = segment_sum(torch.ones(segment_ids.shape, dtype=data.dtype,
+                                 device=data.device),
+                      segment_ids, num_segments)
+    cnt = torch.clamp(cnt, min=1)
+    return tot / cnt[..., None] if data.dim() > 1 else tot / cnt
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """Numerically stable softmax within each segment (GAT's edge
+    softmax).  The segment maxima and sums are read back through
+    :func:`take_rows`, JAX's clamped gather, and the denominator is clamped
+    at 1e-20, as in the reference."""
+    seg_max = segment_max(logits, segment_ids, num_segments)
+    ex = torch.exp(logits - take_rows(seg_max, segment_ids))
+    den = segment_sum(ex, segment_ids, num_segments)
+    return ex / torch.clamp(take_rows(den, segment_ids), min=1e-20)
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
@@ -92,3 +150,12 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                           bag, nbags)
         out = out / torch.clamp(cnt, min=1)[:, None]
     return out
+
+
+def coalesce_edges(src: torch.Tensor, dst: torch.Tensor, n: int):
+    """Edges sorted by destination, then source, for locality: ``(src,
+    dst, order)``.  The key ``dst * n + src`` is int64 for any ``n`` (see
+    the module's docstring) and the sort is stable."""
+    key = dst.long() * n + src.long()
+    order = torch.argsort(key, stable=True)
+    return src[order], dst[order], order

@@ -46,6 +46,32 @@ def flatten(tree) -> tuple[list, tuple]:
     return leaves, treedef
 
 
+def path_names(tree) -> list[str]:
+    """Each leaf's path in flatten order, named as the reference names one
+    from ``jax.tree_util.tree_flatten_with_path``: its keys, indices and
+    NamedTuple fields (``.name``) joined by ``/``, e.g. ``.mu/layers/wq``
+    or ``inter/filt1/w``."""
+    names: list = []
+
+    def walk(x, path):
+        if x is None:
+            return
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], (*path, str(k)))
+        elif _is_namedtuple(x):
+            for f, c in zip(type(x)._fields, x):
+                walk(c, (*path, f".{f}"))
+        elif isinstance(x, (tuple, list)):
+            for i, c in enumerate(x):
+                walk(c, (*path, str(i)))
+        else:
+            names.append("/".join(path))
+
+    walk(tree, ())
+    return names
+
+
 def leaves(tree) -> list:
     return flatten(tree)[0]
 

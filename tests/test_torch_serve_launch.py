@@ -10,9 +10,8 @@ architecture registry (``repro_torch.configs``) against the JAX package's.
   its mesh with Explicit axes, which jax 0.9 rejects in its sharding
   constraint, and returns nothing; the test runs the same loop
   (``src/repro/launch/serve.py:59-91``) on a mesh with Auto axes instead.
-* ``get_arch``: every LM and recsys id and alias resolves to the
-  reference's config field for field; schnet, which the port lacks,
-  raises.
+* ``get_arch``: every LM, GNN and recsys id and alias resolves to the
+  reference's config field for field.
 """
 
 import re
@@ -42,7 +41,7 @@ from repro_torch.launch.train import reduced_lm
 ROOT = Path(__file__).resolve().parents[1]
 LM_IDS = ["llama4_scout_17b_a16e", "granite_moe_3b_a800m", "granite_3_2b",
           "llama3_2_3b", "mistral_large_123b"]
-UNPORTED = ["schnet"]
+GNN_IDS = ["schnet"]
 RECSYS_IDS = ["dlrm_mlperf", "dlrm-mlperf", "sasrec", "din",
               "two_tower_retrieval", "two-tower-retrieval"]
 
@@ -237,11 +236,27 @@ def test_get_arch_resolves_the_recsys_archs(arch_id):
         assert np.array_equal(tc.offsets, jc.offsets)
 
 
-@pytest.mark.parametrize("arch_id", UNPORTED)
+@pytest.mark.parametrize("arch_id", GNN_IDS)
 def test_get_arch_raises_for_what_is_not_ported(arch_id):
-    jax_get_arch(arch_id)                       # the reference has it
-    with pytest.raises(KeyError, match="not ported yet"):
-        configs.get_arch(arch_id)
+    """Nothing is left unported: schnet, the last id to come, resolves to
+    a ``GNNArch`` equal to the reference's field for field, its base
+    config's and each shape's config's too."""
+    got, want = configs.get_arch(arch_id), jax_get_arch(arch_id)
+    assert type(got).__name__ == type(want).__name__ == "GNNArch"
+    assert (got.arch_id, got.family, got.shapes) == \
+        (want.arch_id, want.family, want.shapes)
+    for shape in (None, *got.shapes):
+        tc = got.cfg_for(shape) if shape else got.base_cfg
+        jc = want.cfg_for(shape) if shape else want.base_cfg
+        assert [f.name for f in fields(tc)] == [f.name for f in fields(jc)]
+        for f in fields(tc):
+            a, b = getattr(tc, f.name), getattr(jc, f.name)
+            if isinstance(a, torch.dtype):
+                assert str(a).removeprefix("torch.") == \
+                    _jax_dtype_name(b), f.name
+            else:
+                assert a == b, f.name
+    assert configs.PORTED == set(configs.ARCH_IDS)
 
 
 def test_get_arch_ids_and_unknown():
