@@ -23,6 +23,11 @@
     python3 chip_smoke.py --recsys-only    # the recsys path (phase 7b)
                                            # alone
     python3 chip_smoke.py --gnn-only       # the GNN path (phase 7c) alone
+    python3 chip_smoke.py --dryrun-only    # the dry run (phase 8) alone
+    python3 chip_smoke.py --dryrun-all     # the dry run over every cell
+                                           # and probe (not in the default
+                                           # run: the LM train cells trace
+                                           # for minutes each)
 
 Phases, each printing its own lines; the first failed check exits non-zero:
 
@@ -274,7 +279,28 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      over 67 TFLOP/s float32), the peak memory, the generator's largest
      in-degree and its share, and one step under ``torch.profiler`` (busy
      ms, idle share, the five longest kernels);
-  8. Path A, the variable-growth kernel backend: the first
+  8. the dry run (:func:`dryrun_phase`; also alone by ``--dryrun-only``),
+     which launches none of the five kernels either: (a) in processes of
+     their own, side by side (a fake process group is process-wide),
+     ``python -m repro_torch.launch.dryrun`` traces the llama3.2-3b
+     train_4k probe cells (L = 1, 2, the single-pod mesh) and one cell
+     each of schnet (molecule), DLRM (train_batch) and paper_index
+     (query_rank) on both meshes, on fake worlds of 256 and 512 ranks with
+     fake CUDA tensors; one ``[dryrun]`` line a cell gives its per-rank
+     argument and temp GB against 80 GB, flops, link bytes and trace
+     seconds, and an error record fails; (b) meanwhile, in a process of
+     its own (its caching allocator starts empty, as the prediction
+     assumes), one cell a family (``DRYRUN_CARD``: the llama3.2-3b probe
+     cell at L = 2 with train_4k's batch cut to ``DRYRUN_LM_BATCH``,
+     SchNet at minibatch_lg, SASRec at train_batch) is predicted on a
+     fake one-rank world (mesh data 1 x model 1), then built on a
+     one-rank NCCL world and run on the card:
+     the argument bytes allocated must equal the prediction, the growth of
+     ``max_memory_allocated`` lie within ``DRYRUN_PEAK_TOL`` of the
+     predicted peak, and ``FlopCounterMode``'s count equal the predicted
+     flops; a second step is timed by CUDA events.  ``--dryrun-all`` runs
+     every cell and probe through the CLI instead of (a) and (b);
+  9. Path A, the variable-growth kernel backend: the first
      ``TRIANGLE_DOCS`` documents of the WSJ1-like stream (cut to 6,144
      for the tier, fleet, mesh and LM phases) into ``Engine(B=64,
      growth="triangle")`` (paper §5.4, no device image) through
@@ -294,7 +320,7 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      on its grid, the launch floor); then ``topk_score`` on
      seeded inputs of 9 and 40 segments over the same docids (off the
      path: a ranked query has 1-4 terms);
-  9. one JSON line listing each kernel with its launches, parity error,
+  10. one JSON line listing each kernel with its launches, parity error,
      times and bound; the card again; and as the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -318,7 +344,8 @@ runs phase 5 alone.
 ``--lm-only`` builds nothing (the LM path launches no hand-written kernel)
 and runs phase 6 alone; ``--train-only`` builds nothing and runs phase 7
 alone; ``--recsys-only`` builds nothing and runs phase 7b alone;
-``--gnn-only`` builds nothing and runs phase 7c alone.
+``--gnn-only`` builds nothing and runs phase 7c alone; ``--dryrun-only``
+builds nothing and runs phase 8 alone, ``--dryrun-all`` the whole sweep.
 ``--fused-only PT`` builds only ``fused_query`` and times it on phase 3's
 first prepared batch of 32 queries per mode, read from PT, or first
 written there from a Const engine built as phase 3 builds it (a CRC of
@@ -338,6 +365,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -3174,6 +3202,17 @@ def _free_card() -> None:
     torch.cuda.empty_cache()
 
 
+def _kernel_counters() -> dict:
+    """The five kernels' modules, their launch counts set to 0."""
+    import importlib
+    from repro_torch.kernels import build
+    counters = {name: importlib.import_module(
+        f"repro_torch.kernels.{name}.kernel") for name in build.SOURCES}
+    for mod in counters.values():
+        mod.launches = 0
+    return counters
+
+
 def lm_against_cpu(arch_id: str) -> dict:
     """Phase 6 (a): ``arch_id`` at full width and ``LM_SHALLOW`` layers in
     float32, drawn once on the card and copied to the CPU; a prefill of
@@ -3438,12 +3477,7 @@ def lm_phase() -> dict:
     (b) llama3.2-3b and (c) granite-moe-3b-a800m through ``serve_lm``.
     The five kernels' counts are set to 0 before it and read after: the
     LM path launches none of them."""
-    import importlib
-    from repro_torch.kernels import build
-    counters = {name: importlib.import_module(
-        f"repro_torch.kernels.{name}.kernel") for name in build.SOURCES}
-    for mod in counters.values():
-        mod.launches = 0
+    counters = _kernel_counters()
     t0 = time.perf_counter()
     out = {"parity": {a: lm_against_cpu(a) for a in LM_ARCHS},
            "serve": {a: lm_serve(a) for a in LM_ARCHS}}
@@ -3866,12 +3900,7 @@ def train_phase() -> dict:
     llama3.2-3b at full width and depth, (c) the bit-identical resume.
     The five kernels' counts are set to 0 before it and read after: the
     training path launches none of them."""
-    import importlib
-    from repro_torch.kernels import build
-    counters = {name: importlib.import_module(
-        f"repro_torch.kernels.{name}.kernel") for name in build.SOURCES}
-    for mod in counters.values():
-        mod.launches = 0
+    counters = _kernel_counters()
     t0 = time.perf_counter()
     out = {"parity": {a: train_against_cpu(a) for a in TRAIN_ARCHS},
            "full": train_full(), "resume": train_resume()}
@@ -4141,12 +4170,7 @@ def recsys_phase() -> dict:
     CPU at its widths, (b) each at full scale, trained and served.  The
     five kernels' counts are set to 0 before it and read after: the path
     launches none of them."""
-    import importlib
-    from repro_torch.kernels import build
-    counters = {name: importlib.import_module(
-        f"repro_torch.kernels.{name}.kernel") for name in build.SOURCES}
-    for mod in counters.values():
-        mod.launches = 0
+    counters = _kernel_counters()
     t0 = time.perf_counter()
     say(f"[recsys] cuts: (a) tables of {RECSYS_CUT_ROWS:,} rows a field or "
         f"table for the CPU's side; (b) DLRM's fields capped at "
@@ -4567,12 +4591,7 @@ def gnn_phase() -> dict:
     graph drawn on a thread while (a) and (c) run.  The five kernels'
     counts are set to 0 before it and read after: the path launches none
     of them."""
-    import importlib
-    from repro_torch.kernels import build
-    counters = {name: importlib.import_module(
-        f"repro_torch.kernels.{name}.kernel") for name in build.SOURCES}
-    for mod in counters.values():
-        mod.launches = 0
+    counters = _kernel_counters()
     t0 = time.perf_counter()
     draw = _OgbDraw()
     out = {"parity": {f"{'class' if c else 'reg'}-{k}":
@@ -4592,6 +4611,309 @@ def gnn_phase() -> dict:
         f"its shapes but no code that flattens sampled blocks into its "
         f"batch)")
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 8: the dry run
+# --------------------------------------------------------------------------
+
+#: (a): the dry run's CLI arguments, each run as its own process (a fake
+#: process group is process-wide), all side by side
+DRYRUN_FAKE = (
+    ("--arch", "llama3.2-3b", "--shape", "train_4k", "--probe"),
+    ("--arch", "schnet", "--shape", "molecule", "--mesh", "both"),
+    ("--arch", "dlrm-mlperf", "--shape", "train_batch", "--mesh", "both"),
+    ("--arch", "paper_index", "--shape", "query_rank", "--mesh", "both"),
+)
+#: (b): the cells predicted on a fake one-rank world and run on the card
+#: (arch, shape, probe layers): one a family
+DRYRUN_CARD = (("llama3.2-3b", "train_4k", 2), ("schnet", "minibatch_lg", None),
+               ("sasrec", "train_batch", None))
+DRYRUN_LM_BATCH = 2       # (b): train_4k's batch of 256, cut to what one
+#                           card holds: the probe cell at L = 2 keeps all
+#                           28 layers' parameters and moments (36.1 GB),
+#                           and a batch of 2 takes 36.7 GB more (predicted)
+DRYRUN_PEAK_TOL = 0.10    # (b): predicted peak within 10 % of the measured
+DRYRUN_HBM_GB = 80.0      # one H100's device memory, GB
+DRYRUN_DEVICE = "cuda"
+DRYRUN_TIMEOUT_S = 600
+
+
+def dryrun_fake_start(out: Path) -> list:
+    """(a): start the dry run's processes on fake worlds of 256 and 512
+    ranks, fake ``DRYRUN_DEVICE`` tensors, writing records into ``out``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+         DRYRUN_DEVICE, "--force", "--out", str(out), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for args in DRYRUN_FAKE]
+
+
+def dryrun_fake_finish(procs: list, out: Path) -> list:
+    """(a): wait for the processes, check every record and print one
+    ``[dryrun]`` line a cell; any error fails."""
+    errs = []
+    for p in procs:
+        try:
+            _, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        errs.append((p, "\n".join(line for line in err.splitlines()
+                                   if "redistributing" not in line)))
+    recs = []
+    for path in sorted(out.glob("*.json")):
+        rec = json.loads(path.read_text())
+        if rec["status"] != "ok":
+            say(rec.get("traceback", ""))
+            fail(f"[dryrun] {path.stem}: {rec.get('error')}")
+        m = rec["memory"]
+        args_gb, temp_gb = m["argument_bytes"] / 1e9, m["temp_bytes"] / 1e9
+        say(f"[dryrun] {path.stem}: ok, per rank of {rec['chips']}: "
+            f"arguments {args_gb:.3f} GB + temp {temp_gb:.3f} GB = "
+            f"{args_gb + temp_gb:.3f} of {DRYRUN_HBM_GB:.0f} GB, "
+            f"{rec['hlo_flops']:.4e} flops, link "
+            f"{rec['collectives']['link_bytes'] / 1e9:.4f} GB, traced in "
+            f"{rec['trace_s']} s")
+        recs.append(rec)
+    for p, err in errs:
+        if p.returncode != 0:
+            fail(f"[dryrun] {' '.join(p.args[2:])} exited "
+                 f"{p.returncode}: {err[-3000:]}")
+    if len(recs) != 8:
+        fail(f"[dryrun] {len(recs)} records, not 8")
+    return recs
+
+
+def _card_args(cell, mesh, arch, gen) -> tuple:
+    """The cell's arguments on the card as DTensors of its placements on a
+    one-rank mesh: floats N(0, 0.02²), ids within their ranges, masks
+    true, the AdamW moments and step zero."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import tree
+    from repro_torch.configs.common import GNN_SHAPES
+    c = getattr(arch, "cfg", None)
+    if arch.family == "lm":
+        bound = {"tokens": c.vocab, "labels": c.vocab}
+    elif arch.family == "gnn":
+        s = GNN_SHAPES[cell.shape_id]
+        bound = {"src": s["n_nodes"], "dst": s["n_nodes"],
+                 "labels": max(s["classify"], 1),
+                 "graph_ids": s.get("n_graphs", 1)}
+    else:
+        bound = {k: c.n_items for k in ("seq", "pos", "neg", "cands")}
+    out = []
+    for arg, pls in zip(cell.args, cell.in_shardings):
+        flat, treedef = tree.flatten(arg)
+        made = []
+        for name, x, pl in zip(tree.path_names(arg), flat, pls):
+            key = name.split("/")[-1]
+            if name.startswith((".mu", ".nu", ".step")):
+                t = torch.zeros(x.shape, dtype=x.dtype, device=DRYRUN_DEVICE)
+            elif x.dtype == torch.bool:
+                t = torch.ones(x.shape, dtype=x.dtype, device=DRYRUN_DEVICE)
+            elif x.dtype.is_floating_point:
+                t = torch.empty(x.shape, dtype=x.dtype, device=DRYRUN_DEVICE)
+                t.normal_(0.0, 0.02, generator=gen)
+            else:
+                t = torch.randint(0, bound[key], x.shape, generator=gen,
+                                  device=DRYRUN_DEVICE).to(x.dtype)
+            made.append(DTensor.from_local(t, mesh, pl, run_check=False))
+        out.append(tree.unflatten(treedef, made))
+    return tuple(out)
+
+
+def dryrun_against_card(arch_id: str, shape_id: str, probe) -> dict:
+    """(b): ``arch_id``'s cell predicted on a fake one-rank world (mesh
+    data 1 x model 1, fake CUDA tensors), then built on a one-rank NCCL
+    world and run on the card: the argument bytes allocated must equal the
+    prediction, the peak growth of ``max_memory_allocated`` lie within
+    ``DRYRUN_PEAK_TOL`` of the predicted peak (arguments and temp), and
+    ``FlopCounterMode``'s count of the run equal the predicted flops."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import tree
+    from repro_torch.configs import common, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    arch = get_arch(arch_id)
+    saved = dict(common.LM_SHAPES["train_4k"])
+    if arch.family == "lm":
+        common.LM_SHAPES["train_4k"]["batch"] = DRYRUN_LM_BATCH
+    store = Path(tempfile.mkdtemp(prefix="dryrun-pg-"))
+    try:
+        with fake_world(1):
+            mesh = init_device_mesh(DRYRUN_DEVICE, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            pred = dryrun.trace_cell(
+                dryrun.build_cell(arch_id, shape_id, mesh, probe), mesh,
+                DRYRUN_DEVICE)
+        dist.init_process_group("nccl" if DRYRUN_DEVICE == "cuda" else "gloo",
+                                init_method=f"file://{store}/pg",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh(DRYRUN_DEVICE, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            cell = dryrun.build_cell(arch_id, shape_id, mesh, probe)
+            # cuBLAS workspaces, one a handle, are allocated at a handle's
+            # first product: make them now, for this thread and for the
+            # autograd engine's, so that none lands inside a segment of
+            # the cell's tensors and keeps it from being released
+            for dt in (torch.float32, torch.bfloat16):
+                w = torch.ones(64, 64, dtype=dt, device=DRYRUN_DEVICE,
+                               requires_grad=True)
+                (w @ w).sum().backward()
+            del w
+            _free_card()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            args = _card_args(cell, mesh, arch, torch.Generator(
+                device=DRYRUN_DEVICE).manual_seed(0))
+            torch.cuda.synchronize()
+            allocated = torch.cuda.memory_allocated() - before
+            torch.cuda.reset_peak_memory_stats()
+            with FlopCounterMode(display=False) as counter:
+                out = cell.fn(*args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            small = [x.full_tensor() if hasattr(x, "full_tensor") else x
+                     for x in tree.leaves(out)
+                     if x.dtype.is_floating_point and x.numel() <= 1 << 20]
+            finite = all(bool(torch.isfinite(x).all()) for x in small)
+            del small
+            del out
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = cell.fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+            del out, args, cell
+        finally:
+            dist.destroy_process_group()
+    finally:
+        common.LM_SHAPES["train_4k"] = saved
+        shutil.rmtree(store, ignore_errors=True)
+        _free_card()
+    m = pred["memory"]
+    want_peak = m["argument_bytes"] + m["temp_bytes"]
+    row = dict(cell=f"{arch_id} {shape_id}" + (f" probe L={probe}" if probe
+                                               else ""),
+               args_pred=m["argument_bytes"], args_alloc=allocated,
+               peak_pred=want_peak, peak_meas=peak,
+               flops_pred=pred["hlo_flops"],
+               flops_meas=float(counter.get_total_flops()), ms=ms,
+               trace_s=pred["trace_s"])
+    say(f"[dryrun] card {row['cell']}: arguments predicted "
+        f"{row['args_pred']} B, allocated {allocated} B; peak predicted "
+        f"{want_peak / 1e9:.4f} GB, measured {peak / 1e9:.4f} GB "
+        f"({(want_peak - peak) / peak:+.4f}); flops predicted "
+        f"{row['flops_pred']:.6e}, FlopCounterMode {row['flops_meas']:.6e}; "
+        f"step {ms:.2f} ms by CUDA events (second step); traced in "
+        f"{pred['trace_s']:.2f} s; {card_line()}")
+    if not finite:
+        fail(f"[dryrun] {row['cell']}: a non-finite output")
+    if allocated != m["argument_bytes"]:
+        fail(f"[dryrun] {row['cell']}: {allocated} argument bytes allocated, "
+             f"{m['argument_bytes']} predicted")
+    if abs(want_peak - peak) > DRYRUN_PEAK_TOL * peak:
+        fail(f"[dryrun] {row['cell']}: peak predicted {want_peak}, "
+             f"measured {peak}")
+    if row["flops_pred"] != row["flops_meas"]:
+        fail(f"[dryrun] {row['cell']}: flops predicted {row['flops_pred']}, "
+             f"counted {row['flops_meas']}")
+    return row
+
+
+def dryrun_card_process() -> None:
+    """(b) in a process of its own (:func:`dryrun_phase` starts it): the
+    caching allocator starts empty there, as the prediction assumes, and
+    not with the blocks earlier phases leave cached.  Prints each cell's
+    line and, last, a JSON list of the rows; exits non-zero on a failed
+    check or a kernel launch."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, str(ROOT / "src"))
+    counters = _kernel_counters()
+    rows = [dryrun_against_card(*c) for c in DRYRUN_CARD]
+    launched = {name: mod.launches for name, mod in counters.items()}
+    if any(launched.values()):
+        fail(f"[dryrun] the card cells launched {launched}")
+    say(json.dumps(rows))
+
+
+def _dryrun_card_start():
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke.dryrun_card_process()")
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _dryrun_card_finish(proc) -> list:
+    out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        say(line)
+    if proc.returncode != 0 or not lines:
+        say("\n".join(lines[-1:]))
+        fail(f"[dryrun] the card cells' process exited {proc.returncode}: "
+             + "\n".join(line for line in err.splitlines()
+                         if "redistributing" not in line)[-3000:])
+    return json.loads(lines[-1])
+
+
+def dryrun_phase(everything: bool = False) -> dict:
+    """Phase 8, the dry run: (a) the fake-world cells of ``DRYRUN_FAKE``
+    in processes of their own while (b) checks ``DRYRUN_CARD``'s cells
+    against the card in one more (:func:`dryrun_card_process`); with
+    ``everything`` (``--dryrun-all``) (a) is every cell and every probe
+    instead.  The five kernels' counts are set to 0 before it and read
+    after, here and in (b)'s process: the dry run launches none of
+    them."""
+    counters = _kernel_counters()
+    t0 = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun-"))
+    try:
+        if everything:
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+            for extra in ((), ("--probe",)):
+                got = subprocess.run(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--device", DRYRUN_DEVICE, "--arch", "all", "--mesh",
+                     "both", "--out", str(out_dir), *extra], env=env,
+                    capture_output=True, text=True)
+                say(got.stdout.strip())
+                if got.returncode != 0:
+                    fail(f"[dryrun] the sweep failed: {got.stderr[-2000:]}")
+            return {"s": time.perf_counter() - t0}
+        procs = dryrun_fake_start(out_dir)
+        procs.append(_dryrun_card_start())
+        try:
+            card = _dryrun_card_finish(procs[-1])
+            fake = dryrun_fake_finish(procs[:-1], out_dir)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    launched = {name: mod.launches for name, mod in counters.items()}
+    if any(launched.values()):
+        fail(f"[dryrun] the dry run launched {launched}")
+    s = time.perf_counter() - t0
+    say(f"[dryrun] phase 8 took {s:.1f} s; launches of the five "
+        f"hand-written kernels during it: {launched} (the reference's dry "
+        f"run reaches no Pallas kernel)")
+    return {"fake": fake, "card": card, "s": s}
 
 
 def main() -> int:
@@ -4648,6 +4970,16 @@ def main() -> int:
                     help="run phase 7c, the GNN path, alone (no kernel is "
                          "built: the path launches none), and stop: no "
                          "other path is driven")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="run phase 8, the dry run, alone (no kernel is "
+                         "built: it launches none), and stop: no other "
+                         "path is driven")
+    ap.add_argument("--dryrun-all", action="store_true",
+                    help="run the dry run over every cell and probe on "
+                         "fake worlds, and stop: no other path is driven "
+                         "(hours: the LM prefill_32k and train_4k cells "
+                         "at full depth trace for minutes to an hour "
+                         "each)")
     ap.add_argument("--fused-only", type=Path, metavar="PT",
                     help="time the fused kernel alone on the main path's "
                          "prepared batches, read from PT (written there "
@@ -4726,6 +5058,13 @@ def main() -> int:
         say(f"[card] {card_line()}")
         say("[done] --gnn-only: no other path was driven")
         return 0
+    if args.dryrun_only or args.dryrun_all:
+        dryrun_phase(everything=args.dryrun_all)
+        if "jax" in sys.modules:
+            fail("jax was imported")
+        say(f"[card] {card_line()}")
+        say("[done] --dryrun-only/--dryrun-all: no other path was driven")
+        return 0
     if args.mesh_only:
         build.build_all(["dvbyte_decode"])
         m2 = const_frozen(args.docs,
@@ -4775,6 +5114,7 @@ def main() -> int:
     train_phase()
     recsys_phase()
     gnn_phase()
+    dryrun_phase()
     tri = triangle_path(TRIANGLE_DOCS, row["index"])
     if "jax" in sys.modules:
         fail("jax was imported")

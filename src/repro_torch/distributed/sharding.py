@@ -23,16 +23,31 @@ against a mesh with absent axes filtered out.  DTensor states the same
 layout the other way round, as placements: one per *mesh* dimension,
 ``Shard(d)`` where the spec names that mesh dimension for tensor dimension
 ``d`` and ``Replicate()`` elsewhere (:func:`placements`).
+
+Helpers the models use on DTensors (plain tensors pass through, so a
+model called with ``mesh=None`` computes what it did before):
+:func:`local_slice` cuts the i-th of n slices out of each rank's own shard
+(a microbatch or an edge chunk that stays sharded), and :func:`replicate`
+gathers a tensor whole on every rank where no sharded formulation exists,
+naming why in the notes that :func:`record_redistributes` collects.
 """
 
 from __future__ import annotations
 
 import re
+from contextlib import contextmanager
+from contextvars import ContextVar
 
+import torch
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 
 from .. import tree as _tree
+
+#: the notes of :func:`replicate` calls, while :func:`record_redistributes`
+#: collects them
+_NOTES: ContextVar[list | None] = ContextVar("redistribute_notes",
+                                             default=None)
 
 
 def _mesh_axes(mesh) -> tuple:
@@ -142,3 +157,136 @@ def remesh(tree, new_mesh, rules):
         full = x.full_tensor() if isinstance(x, DTensor) else x
         out.append(distribute_tensor(full, new_mesh, pl))
     return _tree.unflatten(treedef, out)
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= max(int(n), 1)
+    return tuple(reversed(out))
+
+
+def wrap_local(local: torch.Tensor, mesh, pl, shape) -> DTensor:
+    """``local`` as one rank's shard of a contiguous DTensor of ``shape``
+    with placements ``pl`` (no collective, no check).  In the backward
+    pass the gradient is laid out as ``pl`` again, a partial placement
+    taking the replicated gradient as it is, so each rank's local
+    gradient is the whole gradient of its partial value."""
+    shape = torch.Size(tuple(int(n) for n in shape))
+    return DTensor.from_local(local, mesh, tuple(pl), run_check=False,
+                              shape=shape, stride=contiguous_stride(shape))
+
+
+def local_slice(x, n: int, i: int):
+    """The i-th of ``n`` slices of ``x`` along dimension 0.  A plain
+    tensor gives ``x[i*s:(i+1)*s]`` (s = rows // n).  A DTensor gives, on
+    every rank, the i-th of ``n`` nearly equal slices of its OWN shard
+    (the first ``L % n`` slices one row longer, L rows a shard), wrapped
+    with ``x``'s placements: the slice stays sharded and no rank receives
+    another's rows.  Globally the slice then holds rows ``r*L + start_i``
+    onwards of each shard r, not a contiguous block, so an accumulation
+    over the slices adds the same rows in other groups than a plain split
+    would.  Every rank must hold as many rows (dimension 0 split evenly
+    over its shards)."""
+    if not isinstance(x, DTensor):
+        s = x.shape[0] // n
+        return x[i * s:(i + 1) * s]
+    loc = x.to_local()
+    L = loc.shape[0]
+    if L == 0 or x.shape[0] % L:
+        raise ValueError(f"{x.shape[0]} rows are not split evenly into "
+                         f"shards of {L}")
+    base, extra = divmod(L, n)
+    start = i * base + min(i, extra)
+    size = base + (i < extra)
+    return wrap_local(loc[start:start + size], x.device_mesh, x.placements,
+                      (x.shape[0] // L * size, *x.shape[1:]))
+
+
+@contextmanager
+def record_redistributes():
+    """Collects the notes of the :func:`replicate` calls made in the body:
+    yields the list they are appended to (each note once)."""
+    box: list = []
+    token = _NOTES.set(box)
+    try:
+        yield box
+    finally:
+        _NOTES.reset(token)
+
+
+def replicate(x, why: str, dim: int | None = None):
+    """``x`` gathered whole on every rank of its mesh, or along dimension
+    ``dim`` alone (a plain tensor is returned as it is).  For an op
+    without a sharded formulation; ``why`` is appended to the notes
+    :func:`record_redistributes` collects."""
+    if not isinstance(x, DTensor):
+        return x
+    box = _NOTES.get()
+    if box is not None and why not in box:
+        box.append(why)
+    mesh = x.device_mesh
+    want = tuple(Replicate() if dim is None or (isinstance(p, Shard)
+                                                and p.dim == dim) else p
+                 for p in x.placements)
+    return x.redistribute(mesh, want)
+
+
+def splits_evenly(x, dim: int, n: int) -> bool:
+    """Whether the mesh dimensions that shard ``x``'s dimension ``dim``
+    divide ``n`` (True for a plain tensor)."""
+    if not isinstance(x, DTensor):
+        return True
+    k = 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            k *= x.device_mesh.size(i)
+    return n % k == 0
+
+
+def spec_of(pl, ndim: int, mesh) -> tuple:
+    """The reference's ``PartitionSpec`` of placements ``pl`` on ``mesh``
+    for a tensor of ``ndim`` dimensions, as a tuple: per dimension the
+    mesh axis that shards it, a tuple of axes in mesh order, or None,
+    trailing Nones dropped (the inverse of :func:`placements`)."""
+    names = _mesh_axes(mesh)
+    out = []
+    for d in range(ndim):
+        axes = tuple(n for n, p in zip(names, pl)
+                     if isinstance(p, Shard) and p.dim == d)
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def local_cat(parts: list):
+    """The inverse of :func:`local_slice` over all its slices: plain
+    tensors concatenated along dimension 0; DTensors (of one placement)
+    joined on every rank from their local shards, so each rank's rows stay
+    its own and in order."""
+    if not isinstance(parts[0], DTensor):
+        return torch.cat(parts)
+    first = parts[0]
+    loc = torch.cat([p.to_local() for p in parts])
+    return wrap_local(loc, first.device_mesh, first.placements,
+                      (sum(p.shape[0] for p in parts), *first.shape[1:]))
+
+
+def shard_range(size: int, mesh, pl, dim: int) -> tuple[int, int]:
+    """(first index, length) of this rank's shard of a dimension of
+    ``size`` under placements ``pl``: DTensor's split (ceil-sized chunks,
+    mesh dimensions in order), from the rank's mesh coordinate alone, so
+    that no tensor op runs (under a fake mode none could be read)."""
+    coord = mesh.get_coordinate()
+    lo, n = 0, int(size)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == dim:
+            k = mesh.size(i)
+            chunk = -(-n // k)
+            start = min(coord[i] * chunk, n)
+            lo, n = lo + start, max(0, min(chunk, n - start))
+    return lo, n

@@ -27,8 +27,18 @@ in the forward and in the backward: at ogb_products the whole expansion is
 74 GB an interaction.  Unchunked, the one chunk is all the edges, under
 the checkpoint too.
 
-The reference's ``mesh`` argument and its two ``constrain`` calls (edge
-arrays sharded over the whole mesh) go: the port runs on one device.
+The mesh: :func:`forward`, :func:`graph_loss` and :func:`make_train_step`
+take ``mesh=None``.  With a ``DeviceMesh`` and DTensor inputs
+(``configs.common.GNNArch.build``) the reference's two constraints put
+each chunk's radial basis and messages over the whole mesh, edges split
+over ("pod", "data", "model"); the gather of the node states reads a
+copy gathered whole (it is smaller than the rows looked up), and
+``segment_sum`` adds each rank's own messages into a full node buffer,
+partial over the mesh (the reference's all-reduce after its segment
+sum).  An edge chunk is each rank's own slice of its edge shard
+(``local_slice``), so a chunk holds other edges than the reference's
+chunk of the same number; the chunks' sum is the same up to float32
+rounding.  With ``mesh=None`` nothing changes.
 :func:`init_params` draws the reference's distributions on the device
 from an explicit ``torch.Generator``; the same seed gives other numbers
 than ``jax.random``.
@@ -45,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import tree
 from ..core.device_index import resolve_device
+from ..distributed.sharding import constrain, local_slice
 from ..sparse.ops import segment_sum, take_rows
 from .recsys import make_train_step as _make_loss_step
 
@@ -113,7 +124,7 @@ def rbf_expand(dist, cfg: SchNetConfig):
     return torch.exp(-gamma * torch.square(dist[:, None] - centers[None, :]))
 
 
-def forward(params, batch, cfg: SchNetConfig):
+def forward(params, batch, cfg: SchNetConfig, mesh=None):
     """batch: node_feat (N, d_feat), src/dst (E,), dist (E,), edge_mask (E,).
 
     Returns per-node hidden (N, d_hidden) transformed to (N, n_out).
@@ -132,17 +143,20 @@ def forward(params, batch, cfg: SchNetConfig):
     def cfconv_chunk(h, dist_c, src_c, dst_c, emask_c, lp):
         """One edge chunk of the continuous-filter conv."""
         rbf = rbf_expand(dist_c, cfg)                        # (ec, n_rbf)
+        rbf = constrain(rbf, mesh, ("pod", "data", "model"), None)
         filt = _ap(lp["filt2"], ssp(_ap(lp["filt1"], rbf)))  # (ec, dh)
         msg = take_rows(h, src_c) * filt * emask_c[:, None]  # cfconv
+        msg = constrain(msg, mesh, ("pod", "data", "model"), None)
         return segment_sum(msg, dst_c, N)
 
     def interaction(x, lp):
         h = _ap(lp["in_lin"], x)
         agg = None
         for c in range(n_chunks):
-            sl = slice(c * ec, (c + 1) * ec)
-            out = checkpoint(cfconv_chunk, h, dist[sl], src[sl], dst[sl],
-                             emask[sl], lp, use_reentrant=False)
+            out = checkpoint(cfconv_chunk, h,
+                             *(local_slice(t, n_chunks, c)
+                               for t in (dist, src, dst, emask)),
+                             lp, use_reentrant=False)
             agg = out if agg is None else agg + out
         v = _ap(lp["out2"], ssp(_ap(lp["out1"], agg)))
         return x + v
@@ -152,11 +166,12 @@ def forward(params, batch, cfg: SchNetConfig):
     return _ap(params["read2"], ssp(_ap(params["read1"], x)))
 
 
-def graph_loss(params, batch, cfg: SchNetConfig, n_graphs: int = 1):
+def graph_loss(params, batch, cfg: SchNetConfig, n_graphs: int = 1,
+               mesh=None):
     """Regression (graph-pooled) or node classification, by config.  A
     label out of range gives a NaN loss, as JAX's ``take_along_axis``
     fills it (a negative label counts from the end)."""
-    out = forward(params, batch, cfg)                      # (N, n_out)
+    out = forward(params, batch, cfg, mesh)                # (N, n_out)
     if cfg.n_out == 1:
         # molecule energies: sum-pool per graph via graph_ids
         energy = segment_sum(out[:, 0] * batch["node_mask"],
@@ -174,12 +189,14 @@ def graph_loss(params, batch, cfg: SchNetConfig, n_graphs: int = 1):
     return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
-def make_train_step(cfg: SchNetConfig, optimizer_update, n_graphs: int = 1):
+def make_train_step(cfg: SchNetConfig, optimizer_update, n_graphs: int = 1,
+                    mesh=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     loss, gnorm) over :func:`graph_loss`, with ``models.recsys``'s rule for
-    a non-finite loss (nothing is updated)."""
+    a non-finite loss (nothing is updated; on a mesh the update is applied
+    whatever the loss, as the reference's step does)."""
     return _make_loss_step(
-        lambda p, b: graph_loss(p, b, cfg, n_graphs), optimizer_update)
+        lambda p, b: graph_loss(p, b, cfg, n_graphs, mesh), optimizer_update)
 
 
 def input_specs(cfg: SchNetConfig, n_nodes: int, n_edges: int,

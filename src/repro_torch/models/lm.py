@@ -45,12 +45,29 @@ What stays the reference's arithmetic:
   adds integers (the counts), which carry no gradient.  So a run resumed
   from a checkpoint gives the bits of one that never stopped.
 
-What goes: the reference's ``mesh`` argument, ``_boundary_constraint``,
-every ``constrain`` call and ``make_train_step``'s ``param_shardings`` are
-sharding hints, which do nothing on one card; ``lax.scan`` over layers and
-over loss chunks becomes a Python loop.  Not ported: ``_flash_unrolled``
-and the probe mode (``probe_layers``, ``probe_unroll``), which exist for
-the reference's HLO dry-run.
+The mesh: :func:`forward`, :func:`lm_loss`, :func:`moe_ffn`,
+:func:`make_prefill_step`, :func:`make_serve_step` and
+:func:`make_train_step` take ``mesh=None``.  With a ``DeviceMesh`` and
+parameters and inputs that are DTensors on it (``configs.common.LMArch.
+build``), the reference's constraints are put back where it has them
+(``..distributed.sharding.constrain`` redistributes a DTensor): the
+activations batch-sharded over ("pod", "data"), the query heads over
+"model", the layer boundaries as ``_boundary_constraint`` says
+(``act_shard``), the MoE's dispatch and combine, the loss's logits with
+the vocabulary over "model", and the train step's gradients pinned to the
+parameters' placements (``param_shardings``).  The embedding and the
+gold logit are read where the vocabulary lies (``take_rows``, a masked
+gather from each rank's rows), and a microbatch is each rank's own slice
+of its batch shard (``local_slice``).  With ``mesh=None`` every path
+computes what it did without one, bit for bit; ``lax.scan`` over layers
+and over loss chunks is a Python loop either way.
+
+The probe mode: ``probe_layers`` runs that many layers (layer ``i %
+n_layers``'s weights), as the reference's dry-run probes do, and
+``probe_unroll`` is kept for parity and changes nothing here, since the
+loops are Python loops already.  The reference's ``_flash_unrolled`` is
+the arithmetic of :func:`flash_attention` with its loops unrolled,
+skipping the same wholly masked tiles, so it is not ported apart.
 
 The decode cache is laid out (L, B, S, KV*d_head) as in the reference.
 :func:`make_serve_step`'s step writes the new token's K and V into the
@@ -68,9 +85,14 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from .. import tree
 from ..core.device_index import resolve_device
+from ..distributed.sharding import (constrain, local_slice, replicate,
+                                    shard_range, splits_evenly, wrap_local)
 from ..optim.adamw import global_norm
+from ..sparse.ops import take_rows
 
 
 @dataclass(frozen=True)
@@ -100,8 +122,12 @@ class LMConfig:
     microbatch: int = 1          # grad-accumulation factor (training)
     remat: bool = True           # (training)
     pad_multiple: int = 512      # mesh-divisibility padding (vocab, experts)
-    act_shard: str = "dmodel"    # none|seq|dmodel (the reference's meshes)
+    act_shard: str = "dmodel"    # none|seq|dmodel (layer boundaries on a mesh)
     opt_dtype: torch.dtype = torch.float32  # AdamW moment dtype (training)
+    # the dry run's probe mode: run probe_layers layers; probe_unroll is
+    # the reference's flag for unrolled loops, a no-op here
+    probe_layers: int | None = None
+    probe_unroll: bool = False
 
     @property
     def vocab_padded(self) -> int:
@@ -291,26 +317,42 @@ def moe_capacity(cfg: LMConfig, n_tokens: int) -> int:
 
 
 def moe_ffn(x: torch.Tensor, lp: dict, cfg: LMConfig,
-            drops: list | None = None) -> torch.Tensor:
+            drops: list | None = None, mesh=None) -> torch.Tensor:
     """Sort-based top-k MoE (x: (N, D) flat tokens) -> (N, D).
 
     Expert weights hold E padded to 16; router indices never reach the
     padded range, so padded experts process only zero rows.  Where
     ``drops`` is a list, the number of (token, slot) pairs dropped at
-    capacity is appended to it as a 0-d tensor on x's device."""
+    capacity is appended to it as a 0-d tensor on x's device.
+
+    On a mesh (x a DTensor) the routing, a global sort of the (N*K,)
+    expert ids, runs on ids replicated on every rank; the tokens are
+    gathered whole over the batch axes for the dispatch and each rank
+    reads its slice of the sorted order from them; the experts' batches
+    (Ep, C, D) are split over "model" as the reference constrains them,
+    and the combine reads each token's rows where they lie.  The two
+    replications are named in the notes of
+    ``distributed.sharding.record_redistributes``."""
     mc = cfg.moe
     E, K = mc.n_experts, mc.top_k
     Ep = cfg.n_experts_padded
     N, D = x.shape
     C = moe_capacity(cfg, N)
     dev = x.device
+    x = constrain(x, mesh, ("pod", "data"), None)
     logits = (x @ lp["router"]).float()                      # (N, E)
+    logits = constrain(logits, mesh, ("pod", "data"), None)
     probs = torch.softmax(logits, -1)
     gates, eidx = torch.sort(probs, dim=-1, descending=True,
                              stable=True)
     gates, eidx = gates[:, :K], eidx[:, :K]                  # (N, K)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     flat_e = eidx.reshape(-1)                                # (N*K,)
+    sharded = isinstance(flat_e, DTensor)
+    if sharded:
+        flat_e = replicate(flat_e, "moe routing: the (N*K,) expert ids "
+                                   "replicated for the global sort"
+                           ).to_local()
     # stable sort by expert; rank within expert = position - expert start
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
@@ -318,9 +360,6 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: LMConfig,
         0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(N * K, device=dev) - starts[sorted_e]
-    # expert e's batch is rows [starts[e], starts[e]+C) of the sorted
-    # token matrix, masked at its count
-    sorted_tok = x[order // K]
     starts_p = torch.cat([starts, torch.full((Ep - E,), N * K,
                                              dtype=torch.int64, device=dev)])
     arange_c = torch.arange(C, device=dev)
@@ -328,12 +367,6 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: LMConfig,
     counts_p = torch.cat([counts, torch.zeros(Ep - E, dtype=torch.int64,
                                               device=dev)])
     valid = arange_c[None, :] < torch.clamp(counts_p, max=C)[:, None]
-    h = sorted_tok[torch.clamp(take, 0, N * K - 1)] * valid[..., None]
-    a = torch.einsum("ecd,edf->ecf", h, lp["moe_w_gate"])
-    b = torch.einsum("ecd,edf->ecf", h, lp["moe_w_up"])
-    hh = F.silu(a) * b
-    out_e = torch.einsum("ecf,efd->ecd", hh, lp["moe_w_down"])
-    flat_out = out_e.reshape(Ep * C, D)
     # combine: token (n, k) sits at sorted position inv[nk] with expert
     # rank rank[inv[nk]]; capacity-dropped tokens contribute zero
     inv = torch.argsort(order, stable=True)
@@ -343,8 +376,42 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: LMConfig,
         drops.append((~kept).sum())
     src = torch.clamp(flat_e * C + torch.clamp(r_tok, max=C - 1), 0,
                       Ep * C - 1)
-    per_k = flat_out[src] * kept[:, None].to(x.dtype)
-    return (per_k.reshape(N, K, D) * gates[..., None].to(x.dtype)).sum(1)
+    take = torch.clamp(take, 0, N * K - 1)
+    if not sharded:
+        # expert e's batch is rows [starts[e], starts[e]+C) of the sorted
+        # token matrix, masked at its count
+        sorted_tok = x[order // K]
+        h = sorted_tok[take] * valid[..., None]
+    else:
+        msh = x.device_mesh
+        rows = _on_mesh(order // K, msh, ("pod", "data"))
+        sorted_tok = take_rows(
+            replicate(x, "moe dispatch: the (N, D) tokens gathered over "
+                         "the batch axes"), rows)
+        sorted_tok = constrain(sorted_tok, mesh, ("pod", "data"), None)
+        h = take_rows(sorted_tok, _on_mesh(take, msh, "model")) \
+            * valid[..., None]
+        src = _on_mesh(src, msh, ("pod", "data"))
+    h = constrain(h, mesh, "model", None, None)              # (Ep, C, D)
+    a = torch.einsum("ecd,edf->ecf", h, lp["moe_w_gate"])
+    b = torch.einsum("ecd,edf->ecf", h, lp["moe_w_up"])
+    hh = F.silu(a) * b
+    out_e = torch.einsum("ecf,efd->ecd", hh, lp["moe_w_down"])
+    out_e = constrain(out_e, mesh, "model", None, None)
+    flat_out = out_e.reshape(Ep * C, D)
+    per_k = (take_rows(flat_out, src) if sharded else flat_out[src]) \
+        * kept[:, None].to(x.dtype)
+    per_k = constrain(per_k.reshape(N, K, D), mesh, ("pod", "data"), None,
+                      None)
+    return (per_k * gates[..., None].to(x.dtype)).sum(1)
+
+
+def _on_mesh(t: torch.Tensor, mesh, axes) -> DTensor:
+    """A tensor that every rank holds whole, as a DTensor on ``mesh``
+    split along dimension 0 over ``axes`` (each rank keeps its block; no
+    collective)."""
+    full = wrap_local(t, mesh, (Replicate(),) * mesh.ndim, t.shape)
+    return constrain(full, mesh, axes, *(None,) * (t.dim() - 1))
 
 
 def dense_ffn(x: torch.Tensor, lp: dict) -> torch.Tensor:
@@ -355,11 +422,25 @@ def _layer(layers: dict, i: int) -> dict:
     return {name: w[i] for name, w in layers.items()}
 
 
-def _ffn(h2: torch.Tensor, lp: dict, cfg: LMConfig, drops) -> torch.Tensor:
+def _ffn(h2: torch.Tensor, lp: dict, cfg: LMConfig, drops,
+         mesh=None) -> torch.Tensor:
     if not cfg.moe:
         return dense_ffn(h2, lp)
     D = cfg.d_model
-    return moe_ffn(h2.reshape(-1, D), lp, cfg, drops).reshape(h2.shape)
+    return moe_ffn(h2.reshape(-1, D), lp, cfg, drops,
+                   mesh=mesh).reshape(h2.shape)
+
+
+def _n_layers(cfg: LMConfig) -> int:
+    """Layers a pass runs: ``probe_layers`` in the probe mode."""
+    return cfg.n_layers if cfg.probe_layers is None else cfg.probe_layers
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; a DTensor table is read where its rows lie."""
+    if isinstance(table, DTensor):
+        return take_rows(table, tokens)
+    return table[tokens]
 
 
 # --------------------------------------------------------------------------
@@ -367,26 +448,102 @@ def _ffn(h2: torch.Tensor, lp: dict, cfg: LMConfig, drops) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+def _boundary_constraint(x, cfg: LMConfig, mesh):
+    """The reference's layer-boundary sharding of (B, S, D): the sequence
+    over "model" ("seq"), d_model over "model" ("dmodel"), or the batch
+    alone ("none"); the batch over ("pod", "data") always."""
+    if cfg.act_shard == "seq":
+        return constrain(x, mesh, ("pod", "data"), "model", None)
+    if cfg.act_shard == "dmodel":
+        return constrain(x, mesh, ("pod", "data"), None, "model")
+    return constrain(x, mesh, ("pod", "data"), None, None)
+
+
+def _reshape_local(t, shape):
+    """``t.reshape(shape)``; a DTensor is reshaped shard by shard, keeping
+    its placements, which must tile the new shape as they tiled the old
+    (the heads' splits and merges below), and its gradient is reshaped
+    the same way back."""
+    if not isinstance(t, DTensor):
+        return t.reshape(shape)
+    mesh, pl = t.device_mesh, t.placements
+    local = [shard_range(n, mesh, pl, d)[1] for d, n in enumerate(shape)]
+    return wrap_local(t.to_local().reshape(local), mesh, pl, shape)
+
+
+def _split_heads(t, n: int, dh: int):
+    """(B, S, n*dh) -> (B, S, n, dh).  A DTensor whose last dimension is
+    sharded over more ranks than divide ``n`` is gathered along it first
+    (a shard may not split a head)."""
+    if not splits_evenly(t, t.dim() - 1, n):
+        t = replicate(t, "attention: heads do not divide the model axis; "
+                         "projections gathered over it before the head "
+                         "split", dim=t.dim() - 1)
+    return _reshape_local(t, (*t.shape[:-1], n, dh))
+
+
+def _merge_heads(t):
+    """(B, S, n, dh) -> (B, S, n*dh), a DTensor's head dimension gathered
+    first where its ranks do not divide the heads."""
+    if not splits_evenly(t, 2, t.shape[2]):
+        t = replicate(t, "attention: heads do not divide the model axis; "
+                         "the output gathered over it before the output "
+                         "projection", dim=2)
+    return _reshape_local(t, (*t.shape[:2], t.shape[2] * t.shape[3]))
+
+
+def _attention(q, k, v, cfg: LMConfig):
+    """:func:`flash_attention` of the block.  With q a DTensor whose heads
+    are sharded, each rank runs it on its own heads: K and V are laid out
+    as q on every other mesh dimension and whole over the heads' ones,
+    each local head takes its K/V head (``h // rep``), and the result
+    keeps q's placements.  K's and V's gradients are then partial over
+    the heads' mesh dimensions."""
+    heads = [isinstance(p, Shard) and p.dim == 2 for p in getattr(
+        q, "placements", ())]
+    if not any(heads):
+        return flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+                               kv_chunk=cfg.kv_chunk)
+    mesh = q.device_mesh
+    want = tuple(Replicate() if h else p for p, h in zip(q.placements,
+                                                         heads))
+    grad = tuple(Partial() if h else p for p, h in zip(q.placements, heads))
+    k, v = (t if tuple(t.placements) == want else t.redistribute(mesh, want)
+            for t in (k, v))
+    lo, n = shard_range(q.shape[2], mesh, q.placements, 2)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    idx = torch.div(torch.arange(lo, lo + n, device=q.device), rep,
+                    rounding_mode="floor")
+    kl, vl = (t.to_local(grad_placements=grad)[:, :, idx] for t in (k, v))
+    out = flash_attention(q.to_local(), kl, vl, causal=True,
+                          q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    return wrap_local(out, mesh, q.placements, q.shape)
+
+
 def _block(x: torch.Tensor, lp: dict, cfg: LMConfig,
-           positions: torch.Tensor, drops):
+           positions: torch.Tensor, drops, mesh=None):
     """One layer on x (B, S, D) -> (x, k, v)."""
     B, S, _ = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     h = rmsnorm(x, lp["ln1"])
-    q = (h @ lp["wq"]).reshape(B, S, H, dh)
-    k = (h @ lp["wk"]).reshape(B, S, KV, dh)
-    v = (h @ lp["wv"]).reshape(B, S, KV, dh)
+    h = constrain(h, mesh, ("pod", "data"), None, None)
+    q = _split_heads(h @ lp["wq"], H, dh)
+    k = _split_heads(h @ lp["wk"], KV, dh)
+    v = _split_heads(h @ lp["wv"], KV, dh)
+    q = constrain(q, mesh, ("pod", "data"), None, "model", None)
+    k = constrain(k, mesh, ("pod", "data"), None, None, None)
+    v = constrain(v, mesh, ("pod", "data"), None, None, None)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    att = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
-                          kv_chunk=cfg.kv_chunk)
-    x = x + att.reshape(B, S, H * dh) @ lp["wo"]
-    x = x + _ffn(rmsnorm(x, lp["ln2"]), lp, cfg, drops)
-    return x, k, v
+    att = _merge_heads(_attention(q, k, v, cfg))
+    x = x + _boundary_constraint(att @ lp["wo"], cfg, mesh)
+    h2 = constrain(rmsnorm(x, lp["ln2"]), mesh, ("pod", "data"), None, None)
+    x = x + _boundary_constraint(_ffn(h2, lp, cfg, drops, mesh), cfg, mesh)
+    return _boundary_constraint(x, cfg, mesh), k, v
 
 
 def _remat_block(x: torch.Tensor, lp: dict, cfg: LMConfig,
-                 positions: torch.Tensor, drops) -> torch.Tensor:
+                 positions: torch.Tensor, drops, mesh=None) -> torch.Tensor:
     """:func:`_block` under ``torch.utils.checkpoint`` (the reference's
     ``jax.checkpoint``): only x is kept for the backward pass, which runs
     the layer again.  ``drops`` is handed to the first run alone, so a
@@ -394,13 +551,15 @@ def _remat_block(x: torch.Tensor, lp: dict, cfg: LMConfig,
     box = [drops]
 
     def run(x):
-        return _block(x, lp, cfg, positions, box.pop() if box else None)[0]
+        return _block(x, lp, cfg, positions, box.pop() if box else None,
+                      mesh)[0]
 
     return checkpoint(run, x, use_reentrant=False)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
-            return_kv: bool = False, drops: list | None = None):
+            return_kv: bool = False, drops: list | None = None,
+            mesh=None):
     """tokens (B, S) -> final hidden (B, S, D) [+ per-layer KV cache, a
     dict of (L, B, S, KV*dh) tensors].
 
@@ -408,19 +567,21 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
     step passes them, a list of L per-layer tensors under each name.  With
     ``cfg.remat``, autograd on and no cache asked for, each layer runs
     under :func:`_remat_block`, as the reference's scan body runs under
-    ``jax.checkpoint``."""
+    ``jax.checkpoint`` (the probe mode runs its layers plainly, as the
+    reference's does)."""
     B, S = tokens.shape
     KV, dh = cfg.n_kv_heads, cfg.d_head
-    x = params["embed"][tokens]
+    x = _boundary_constraint(_embed(params["embed"], tokens), cfg, mesh)
     positions = torch.arange(S, device=tokens.device)[None, :]
-    remat = cfg.remat and not return_kv and torch.is_grad_enabled()
+    remat = (cfg.remat and not return_kv and torch.is_grad_enabled()
+             and cfg.probe_layers is None)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for i in range(_n_layers(cfg)):
+        lp = _layer(params["layers"], i % cfg.n_layers)
         if remat:
-            x = _remat_block(x, lp, cfg, positions, drops)
+            x = _remat_block(x, lp, cfg, positions, drops, mesh)
             continue
-        x, k, v = _block(x, lp, cfg, positions, drops)
+        x, k, v = _block(x, lp, cfg, positions, drops, mesh)
         if return_kv:
             ks.append(k.reshape(B, S, KV * dh))
             vs.append(v.reshape(B, S, KV * dh))
@@ -430,34 +591,60 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
     return out
 
 
-def make_prefill_step(cfg: LMConfig):
+def make_prefill_step(cfg: LMConfig, mesh=None):
     """prefill_step(params, tokens) -> (last-token logits, KV cache)."""
 
     def prefill_step(params, tokens, drops=None):
         hidden, cache = forward(params, tokens, cfg, return_kv=True,
-                                drops=drops)
+                                drops=drops, mesh=mesh)
         return hidden[:, -1] @ params["out_proj"], cache
 
     return prefill_step
 
 
+def _gold(lf: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``lf[..., y]``: each row's logit at its label.  On a DTensor whose
+    last dimension (the vocabulary) is sharded, each rank reads the labels
+    that fall in its columns, a result partial over those mesh
+    dimensions."""
+    if not isinstance(lf, DTensor):
+        # one gathered column a row: its backward (a scatter-add on CUDA)
+        # adds once to each address, so it is deterministic
+        return torch.gather(lf, -1, y[..., None].long())[..., 0]
+    mesh, last = lf.device_mesh, lf.dim() - 1
+    vocab = [isinstance(p, Shard) and p.dim == last for p in lf.placements]
+    want_y = tuple(Replicate() if c else p
+                   for p, c in zip(lf.placements, vocab))
+    if not isinstance(y, DTensor):
+        y = wrap_local(y, mesh, (Replicate(),) * mesh.ndim, y.shape)
+    if tuple(y.placements) != want_y:
+        y = y.redistribute(mesh, want_y)
+    loc = lf.to_local()
+    lo, n = shard_range(lf.shape[last], mesh, lf.placements, last)
+    yl = y.to_local().long()
+    mine = (yl >= lo) & (yl < lo + n)
+    got = torch.gather(loc, -1, (yl - lo).clamp(0, n - 1)[..., None])[..., 0]
+    got = torch.where(mine, got, 0.0)
+    return wrap_local(got, mesh, [Partial() if c else p for p, c in
+                                  zip(want_y, vocab)], y.shape)
+
+
 def _chunk_loss(h: torch.Tensor, y: torch.Tensor, out_proj: torch.Tensor,
-                cfg: LMConfig) -> torch.Tensor:
+                cfg: LMConfig, mesh=None) -> torch.Tensor:
     """Summed cross-entropy of one chunk of the sequence: the padded vocab
     columns filled with -1e30 in the logits' dtype, then ``logsumexp`` and
     the gold logit in float32."""
     logits = h @ out_proj                                  # (B, ch, Vp)
+    logits = constrain(logits, mesh, ("pod", "data"), None, "model")
     if cfg.vocab_padded > cfg.vocab:                       # mask pad columns
         vmask = torch.arange(cfg.vocab_padded, device=h.device) < cfg.vocab
         logits = torch.where(vmask, logits, -1e30)
     lf = logits.float()
-    # one gathered column a row: its backward (a scatter-add on CUDA) adds
-    # once to each address, so it is deterministic
-    gold = torch.gather(lf, -1, y[..., None].long())[..., 0]
-    return (torch.logsumexp(lf, -1) - gold).sum()
+    return (torch.logsumexp(lf, -1) - _gold(lf, y)).sum()
 
 
-def lm_loss(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
+def lm_loss(params: dict, batch: dict, cfg: LMConfig,
+            mesh=None) -> torch.Tensor:
     """Chunked cross-entropy: ``loss_chunk`` columns of the sequence at a
     time, the float32 sum divided by B·S (a 0-d float32 tensor).
 
@@ -465,14 +652,15 @@ def lm_loss(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
     the graph keeps a chunk's hidden slice and not its float32 logits
     (2 x 512 x 128,512 x 4 B = 526 MB a chunk for llama3.2-3b at full
     width); the backward pass computes each chunk's logits again."""
-    hidden = forward(params, batch["tokens"], cfg)         # (B, S, D)
+    hidden = forward(params, batch["tokens"], cfg, mesh=mesh)  # (B, S, D)
     labels = batch["labels"]
     B, S, _ = hidden.shape
     ch = min(cfg.loss_chunk, S)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(S // ch):
         args = (hidden[:, i * ch:(i + 1) * ch],
-                labels[:, i * ch:(i + 1) * ch], params["out_proj"], cfg)
+                labels[:, i * ch:(i + 1) * ch], params["out_proj"], cfg,
+                mesh)
         if torch.is_grad_enabled():
             tot = tot + checkpoint(_chunk_loss, *args, use_reentrant=False)
         else:
@@ -514,7 +702,53 @@ def _trainable(params: dict, cfg: LMConfig, microbatch: int):
             "out_proj": leaf(params["out_proj"], grads["out_proj"])}, grads
 
 
-def make_train_step(cfg: LMConfig, optimizer_update):
+def _sharded_grads(params: dict, batch: dict, cfg: LMConfig, mesh,
+                   param_shardings):
+    """(mean loss, gradients) of the microbatched loss on a mesh: each
+    microbatch is every rank's own slice of its batch shard
+    (``local_slice``), each layer's gradient is pinned to its parameter's
+    placements (``param_shardings``, flat in JAX's leaf order, or the
+    parameters' own) and added to a buffer of the parameters' dtype as
+    ``acc + (g / mb).astype(acc)``, as the reference's scan does."""
+    mb = cfg.microbatch
+    flat, treedef = tree.flatten(params)
+    pins = (list(param_shardings) if param_shardings is not None
+            else [p.placements for p in flat])
+    grads = [torch.zeros_like(p) for p in flat]
+    names = tree.path_names(params)
+    loss = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+    for m in range(mb):
+        part = {k: local_slice(v, mb, m) for k, v in batch.items()}
+        leaves, slots = [], []
+        for i, (name, p) in enumerate(zip(names, flat)):
+            if name.startswith("layers/"):
+                per = [p[j].detach().requires_grad_()
+                       for j in range(cfg.n_layers)]
+                leaves.append(per)
+                slots.extend((i, j, t) for j, t in enumerate(per))
+            else:
+                t = p.detach().requires_grad_()
+                leaves.append(t)
+                slots.append((i, None, t))
+        mb_loss = lm_loss(tree.unflatten(treedef, leaves), part, cfg,
+                          mesh=mesh)
+        gs = torch.autograd.grad(mb_loss, [t for _, _, t in slots],
+                                 allow_unused=True, materialize_grads=True)
+        for (i, j, _), g in zip(slots, gs):
+            acc, pl = grads[i], tuple(pins[i])
+            if j is not None:       # a layer of a stacked (L, ...) leaf
+                acc = acc[j]
+                pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                           for p in pl)
+            if tuple(g.placements) != pl:
+                g = g.redistribute(g.device_mesh, pl)
+            acc.add_((g / mb).to(acc.dtype))
+        loss = loss + mb_loss.detach() / mb
+    return loss, tree.unflatten(treedef, grads)
+
+
+def make_train_step(cfg: LMConfig, optimizer_update, *, mesh=None,
+                    param_shardings=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     loss, gnorm).
 
@@ -532,9 +766,21 @@ def make_train_step(cfg: LMConfig, optimizer_update):
     ``float(loss)`` makes anyway) and, where the loss is not finite,
     returns the parameters, moments and step counter untouched with the
     gradient's global norm.  A finite loss is applied even where the
-    gradients are not finite, as in the reference."""
+    gradients are not finite, as in the reference.
+
+    With a ``mesh`` (DTensor parameters, as ``LMArch.build`` lays them
+    out) the step is the reference's cell function: gradients by
+    :func:`_sharded_grads`, pinned to ``param_shardings`` (a flat list of
+    placements in JAX's leaf order, or the parameters' own), and the
+    update applied whatever the loss, with no read on the host."""
 
     def train_step(params, opt_state, batch):
+        if mesh is not None:
+            loss, grads = _sharded_grads(params, batch, cfg, mesh,
+                                         param_shardings)
+            params, opt_state, gnorm = optimizer_update(params, grads,
+                                                        opt_state)
+            return params, opt_state, loss, gnorm
         mb = cfg.microbatch
         tokens, labels = batch["tokens"], batch["labels"]
         sz = tokens.shape[0] // mb
@@ -555,12 +801,35 @@ def make_train_step(cfg: LMConfig, optimizer_update):
     return train_step
 
 
-def make_serve_step(cfg: LMConfig):
+def _write_position(cache: torch.Tensor, pos: int, new: torch.Tensor):
+    """``cache[:, pos] = new`` for one layer's (B, S, KV*dh) cache.  On a
+    DTensor cache whose positions are sharded, only the rank that holds
+    ``pos`` writes, into its own shard."""
+    if not isinstance(cache, DTensor):
+        cache[:, pos] = new
+        return
+    mesh = cache.device_mesh
+    seq = [isinstance(p, Shard) and p.dim == 1 for p in cache.placements]
+    want = tuple(Replicate() if s else (Shard(p.dim - 1) if isinstance(
+        p, Shard) and p.dim > 1 else p)
+        for p, s in zip(cache.placements, seq))
+    if not isinstance(new, DTensor):
+        new = wrap_local(new, mesh, (Replicate(),) * mesh.ndim, new.shape)
+    if tuple(new.placements) != want:
+        new = new.redistribute(mesh, want)
+    lo, n = shard_range(cache.shape[1], mesh, cache.placements, 1)
+    if lo <= pos < lo + n:
+        cache.to_local()[:, pos - lo] = new.to_local()
+
+
+def make_serve_step(cfg: LMConfig, mesh=None):
     """Returns serve_step(params, cache, token, pos) -> (logits, cache).
 
     cache: dict(k=(L, B, S, KV*dh), v=(L, B, S, KV*dh)); one new token per
     sequence (token: (B,)) is written at position ``pos`` (a Python int
-    below S) in place and attends to positions 0..pos."""
+    below S) in place and attends to positions 0..pos.  In the probe mode
+    the first ``probe_layers`` layers run and the cache returned holds
+    those layers (views of the cache given)."""
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     rep = H // KV
 
@@ -570,22 +839,27 @@ def make_serve_step(cfg: LMConfig):
         if not 0 <= pos < S:
             raise ValueError(f"position {pos} outside a cache of {S}")
         dev = token.device
-        x = params["embed"][token][:, None, :]              # (B, 1, D)
+        x = _embed(params["embed"], token)[:, None, :]      # (B, 1, D)
         positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
         smask = torch.arange(S, device=dev) <= pos
-        for li in range(cfg.n_layers):
+        for i in range(_n_layers(cfg)):
+            li = i % cfg.n_layers
             lp = _layer(params["layers"], li)
             kc, vc = cache["k"][li], cache["v"][li]         # (B, S, KV*dh)
             h = rmsnorm(x, lp["ln1"])
-            q = (h @ lp["wq"]).reshape(B, 1, H, dh)
-            k = (h @ lp["wk"]).reshape(B, 1, KV, dh)
-            v = (h @ lp["wv"]).reshape(B, 1, KV, dh)
+            q = _split_heads(h @ lp["wq"], H, dh)
+            k = _split_heads(h @ lp["wk"], KV, dh)
+            v = _split_heads(h @ lp["wv"], KV, dh)
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
-            kc[:, pos] = k.reshape(B, KV * dh)
-            vc[:, pos] = v.reshape(B, KV * dh)
-            kk = kc.reshape(B, S, KV, dh)
-            vv = vc.reshape(B, S, KV, dh)
+            _write_position(kc, pos, k.reshape(B, KV * dh))
+            _write_position(vc, pos, v.reshape(B, KV * dh))
+            kk = _split_heads(kc, KV, dh)
+            vv = _split_heads(vc, KV, dh)
+            if not splits_evenly(q, 2, KV):
+                q = replicate(q, "decode: query heads gathered over the "
+                                 "model axis, whose ranks do not divide "
+                                 "the KV groups", dim=2)
             qg = q.reshape(B, KV, rep, dh)
             s = torch.einsum("bgrd,bsgd->bgrs", qg.float(), kk.float())
             s = s / math.sqrt(dh)
@@ -593,8 +867,11 @@ def make_serve_step(cfg: LMConfig):
             p = torch.softmax(s, -1).to(x.dtype)
             att = torch.einsum("bgrs,bsgd->bgrd", p, vv)
             x = x + att.reshape(B, 1, H * dh) @ lp["wo"]
-            x = x + _ffn(rmsnorm(x, lp["ln2"]), lp, cfg, drops)
+            x = x + _ffn(rmsnorm(x, lp["ln2"]), lp, cfg, drops, mesh)
         logits = rmsnorm(x, params["ln_f"]) @ params["out_proj"]
+        if cfg.probe_layers is not None:
+            n = cfg.probe_layers
+            return logits[:, 0], {k: c[:n] for k, c in cache.items()}
         return logits[:, 0], cache
 
     return serve_step

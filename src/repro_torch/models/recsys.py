@@ -25,8 +25,16 @@ reference.  The ``init`` functions draw the reference's distributions on
 the device from an explicit ``torch.Generator`` (default one seeded with
 0): tables N(0, 0.01²), MLP weights N(0, 1)·√(2/in), biases zero,
 SASRec's block weights N(0, 0.05²) and its norms at 1.  The same seed gives
-other numbers than ``jax.random``.  The reference's ``mesh`` argument and
-its ``constrain`` calls go: the port runs on one device.
+other numbers than ``jax.random``.
+
+The mesh: each model function takes ``mesh=None``.  With a ``DeviceMesh``
+and DTensor inputs (``configs.common.RecsysArch.build``: the batch split
+over the whole mesh, tables of more than 100,000 rows split by rows over
+it, the MLPs replicated) the reference's constraints lay the looked-up
+rows out by the batch again, and ``take_rows`` reads a row-sharded table
+by a masked gather from each rank's own rows (the ids replicated, the
+result reduced to the batch's layout): no table is gathered whole.  With
+``mesh=None`` nothing changes.
 """
 
 from __future__ import annotations
@@ -40,7 +48,10 @@ import torch
 from torch import nn
 
 from .. import tree
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
 from ..core.device_index import resolve_device
+from ..distributed.sharding import constrain, wrap_local
 from ..optim.adamw import global_norm
 from ..sparse.ops import embedding_bag, take_rows
 
@@ -122,21 +133,37 @@ def dlrm_init(cfg: DLRMConfig, device=None, generator=None) -> dict:
     }
 
 
-def dlrm_forward(params, batch, cfg: DLRMConfig):
+_ALL = ("pod", "data", "model")
+
+
+def dlrm_forward(params, batch, cfg: DLRMConfig, mesh=None):
     dense = _mlp_apply(params["bot"], batch["dense"], final_act=True)
     offsets = torch.as_tensor(cfg.offsets, device=dense.device)
     emb = take_rows(params["table"], batch["sparse"].long() + offsets)
+    emb = constrain(emb, mesh, _ALL, None, None)
     feats = torch.cat([dense[:, None, :], emb], dim=1)        # (B, 27, D)
     inter = torch.bmm(feats, feats.transpose(1, 2))
     n = feats.shape[1]
     iu, ju = torch.triu_indices(n, n, 1, device=dense.device)
-    pairs = inter[:, iu, ju]                                  # (B, 351)
+    pairs = _upper_pairs(inter, iu, ju)                       # (B, 351)
     top_in = torch.cat([dense, pairs], dim=1)
     return _mlp_apply(params["top"], top_in)[:, 0]
 
 
-def dlrm_loss(params, batch, cfg: DLRMConfig):
-    return bce_loss(dlrm_forward(params, batch, cfg), batch["label"])
+def _upper_pairs(inter, iu, ju):
+    """``inter[:, iu, ju]``.  A DTensor split along the batch alone is
+    indexed shard by shard: DTensor's own strategy for the index's
+    backward (``index_put``) fails on some torch releases."""
+    if isinstance(inter, DTensor) and all(
+            isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim == 0)
+            for p in inter.placements):
+        return wrap_local(inter.to_local()[:, iu, ju], inter.device_mesh,
+                          inter.placements, (inter.shape[0], iu.numel()))
+    return inter[:, iu, ju]
+
+
+def dlrm_loss(params, batch, cfg: DLRMConfig, mesh=None):
+    return bce_loss(dlrm_forward(params, batch, cfg, mesh), batch["label"])
 
 
 # ==========================================================================
@@ -178,16 +205,23 @@ def _ln(x, g, eps=1e-6):
     return (x - mu) * torch.rsqrt(var + eps) * g
 
 
-def sasrec_hidden(params, seq_ids, cfg: SASRecConfig):
+def sasrec_hidden(params, seq_ids, cfg: SASRecConfig, mesh=None):
     S = seq_ids.shape[1]
     D = cfg.embed_dim
     x = take_rows(params["item_embed"], seq_ids) + params["pos_embed"][None, :S]
+    # a batch that the mesh does not divide (retrieval_cand's one user)
+    # stays whole: DTensor cannot flatten an uneven batch into a product
+    whole = mesh is not None and seq_ids.shape[0] % mesh.size()
+    x = constrain(x, mesh, None if whole else _ALL, None, None)
     mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
     for i in range(cfg.n_blocks):
         bp = {k: v[i] for k, v in params["blocks"].items()}
         h = _ln(x, bp["ln1"])
         q, k, v = torch.split(h @ bp["wqkv"], D, dim=-1)
-        s = torch.einsum("bqd,bkd->bqk", q, k) / math.sqrt(D)
+        # bmm on a mesh: DTensor's einsum reshapes the batch, which a batch
+        # of one split over the mesh cannot take (the same product)
+        s = (torch.bmm(q, k.transpose(1, 2)) if isinstance(q, DTensor)
+             else torch.einsum("bqd,bkd->bqk", q, k)) / math.sqrt(D)
         s = torch.where(mask[None], s, -1e30)
         x = x + (torch.softmax(s, -1) @ v) @ bp["wo"]
         h2 = _ln(x, bp["ln2"])
@@ -195,9 +229,9 @@ def sasrec_hidden(params, seq_ids, cfg: SASRecConfig):
     return x                                                  # (B, S, D)
 
 
-def sasrec_loss(params, batch, cfg: SASRecConfig):
+def sasrec_loss(params, batch, cfg: SASRecConfig, mesh=None):
     """BCE over (positive, sampled negative) next items, per position."""
-    h = sasrec_hidden(params, batch["seq"], cfg)
+    h = sasrec_hidden(params, batch["seq"], cfg, mesh)
     pos_l = (h * take_rows(params["item_embed"], batch["pos"])).sum(-1)
     neg_l = (h * take_rows(params["item_embed"], batch["neg"])).sum(-1)
     m = batch["seq_mask"]
@@ -205,10 +239,12 @@ def sasrec_loss(params, batch, cfg: SASRecConfig):
     return loss.sum() / torch.clamp(m.sum(), min=1.0)
 
 
-def sasrec_serve(params, batch, cfg: SASRecConfig):
+def sasrec_serve(params, batch, cfg: SASRecConfig, mesh=None):
     """Score candidate items given a user's history (online inference)."""
-    h = sasrec_hidden(params, batch["seq"], cfg)[:, -1]       # (B, D)
+    h = sasrec_hidden(params, batch["seq"], cfg, mesh)[:, -1]  # (B, D)
     cand = take_rows(params["item_embed"], batch["cands"])    # (B, C, D)
+    if isinstance(cand, DTensor):                             # see above
+        return torch.bmm(cand, h[:, :, None])[..., 0]
     return torch.einsum("bd,bcd->bc", h, cand)
 
 
@@ -238,8 +274,9 @@ def din_init(cfg: DINConfig, device=None, generator=None) -> dict:
     }
 
 
-def din_forward(params, batch, cfg: DINConfig):
+def din_forward(params, batch, cfg: DINConfig, mesh=None):
     hist = take_rows(params["item_embed"], batch["history"])  # (B, L, D)
+    hist = constrain(hist, mesh, _ALL, None, None)
     tgt = take_rows(params["item_embed"], batch["target"])    # (B, D)
     t = tgt[:, None, :].expand_as(hist)
     a_in = torch.cat([hist, t, hist - t, hist * t], dim=-1)
@@ -250,8 +287,8 @@ def din_forward(params, batch, cfg: DINConfig):
     return _mlp_apply(params["mlp"], x)[:, 0]
 
 
-def din_loss(params, batch, cfg: DINConfig):
-    return bce_loss(din_forward(params, batch, cfg), batch["label"])
+def din_loss(params, batch, cfg: DINConfig, mesh=None):
+    return bce_loss(din_forward(params, batch, cfg, mesh), batch["label"])
 
 
 # ==========================================================================
@@ -288,7 +325,7 @@ def _unit(x):
                            min=1e-6)
 
 
-def user_embedding(params, batch, cfg: TwoTowerConfig):
+def user_embedding(params, batch, cfg: TwoTowerConfig, mesh=None):
     """(B, D') unit rows from ``batch["user_feats"]`` (B, F) hashed feature
     ids, summed with ``batch["user_mask"]`` (B, F) weights."""
     bag = embedding_bag(params["user_table"], batch["user_feats"],
@@ -296,13 +333,14 @@ def user_embedding(params, batch, cfg: TwoTowerConfig):
     return _unit(_mlp_apply(params["user_tower"], bag))
 
 
-def item_embedding(params, item_ids, cfg: TwoTowerConfig):
+def item_embedding(params, item_ids, cfg: TwoTowerConfig, mesh=None):
     """(*ids.shape, D') unit rows; ids ≥ ``n_items`` read the last row."""
     return _unit(_mlp_apply(params["item_tower"],
                             take_rows(params["item_table"], item_ids)))
 
 
-def twotower_loss(params, batch, cfg: TwoTowerConfig, tau=0.05):
+def twotower_loss(params, batch, cfg: TwoTowerConfig, mesh=None,
+                  tau=0.05):
     """In-batch sampled softmax with logQ correction (Yi et al. '19)."""
     u = user_embedding(params, batch, cfg)                    # (B, D')
     v = item_embedding(params, batch["item"], cfg)            # (B, D')
@@ -311,17 +349,18 @@ def twotower_loss(params, batch, cfg: TwoTowerConfig, tau=0.05):
     return (lse - logits.diagonal()).mean()
 
 
-def twotower_serve(params, batch, cfg: TwoTowerConfig):
+def twotower_serve(params, batch, cfg: TwoTowerConfig, mesh=None):
     """Online inference: score given (user, item) pairs."""
     u = user_embedding(params, batch, cfg)
     v = item_embedding(params, batch["item"], cfg)
     return (u * v).sum(-1)
 
 
-def twotower_retrieve(params, batch, cfg: TwoTowerConfig):
+def twotower_retrieve(params, batch, cfg: TwoTowerConfig, mesh=None):
     """retrieval_cand: score each user against ``batch["cand_ids"]``."""
     u = user_embedding(params, batch, cfg)                    # (B, D')
-    return u @ item_embedding(params, batch["cand_ids"], cfg).T
+    cand = item_embedding(params, batch["cand_ids"], cfg)     # (C, D')
+    return u @ constrain(cand, mesh, ("data", "model"), None).T
 
 
 def _tower(layers: list, device) -> nn.Sequential:
@@ -425,7 +464,9 @@ def make_train_step(loss_fn, optimizer_update):
     loss holds as in ``models.lm.make_train_step``: the step reads
     ``torch.isfinite(loss)`` on the host before it updates and, where the
     loss is not finite, returns the parameters, moments and step counter
-    untouched with the gradient's global norm."""
+    untouched with the gradient's global norm.  A loss that is a DTensor
+    (a mesh's cell, ``configs.common``) is applied whatever it is, with no
+    read on the host, as the reference's step does."""
 
     def train_step(params, opt_state, batch):
         flat, treedef = tree.flatten(params)
@@ -436,7 +477,7 @@ def make_train_step(loss_fn, optimizer_update):
         del leaves
         grads = tree.unflatten(treedef, list(grads))
         loss = loss.detach()
-        if not torch.isfinite(loss):
+        if not isinstance(loss, DTensor) and not torch.isfinite(loss):
             return params, opt_state, loss, global_norm(grads)
         params, opt_state, gnorm = optimizer_update(params, grads, opt_state)
         return params, opt_state, loss, gnorm

@@ -25,6 +25,14 @@ What differs from the reference, and why:
   order.  Each leaf's own sum is PyTorch's reduction, another order than
   XLA's, so the norms agree to float32 rounding, not bit for bit.
 
+DTensor leaves (a mesh's cell, ``configs.common``): :func:`adamw_init`
+gives moments with the parameters' placements and a replicated step
+counter; :func:`adamw_update` lays each gradient out as its parameter
+(reducing a partial one) and works on each rank's local shards, which is
+exact since parameters, gradients and moments then share placements; and
+:func:`global_norm` adds each leaf's local sum of squares over the mesh
+dimensions that shard it, so every rank holds the global norm.
+
 The update's arithmetic is the reference's: the gradient scaled by
 ``min(1, max_norm / max(norm, 1e-9))`` in float32, the moments upcast to
 float32 for the update and cast back to their own dtype, bias correction by
@@ -37,6 +45,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .. import tree
 
@@ -63,8 +72,14 @@ def adamw_init(params, state_dtype: torch.dtype = torch.float32
                        params)
     nu = tree.tree_map(torch.zeros_like, mu)
     first = tree.leaves(params)[0]
-    return AdamWState(step=torch.zeros((), dtype=torch.int32,
-                                       device=first.device), mu=mu, nu=nu)
+    if isinstance(first, DTensor):
+        mesh = first.device_mesh
+        step = DTensor.from_local(
+            torch.zeros((), dtype=torch.int32, device=first.device), mesh,
+            (Replicate(),) * mesh.ndim, run_check=False)
+    else:
+        step = torch.zeros((), dtype=torch.int32, device=first.device)
+    return AdamWState(step=step, mu=mu, nu=nu)
 
 
 def _slices(t: torch.Tensor, limit: int | None = None):
@@ -84,12 +99,41 @@ def _slices(t: torch.Tensor, limit: int | None = None):
     yield from torch.split(t, limit // row)
 
 
+def _local_square_sum(g: DTensor) -> torch.Tensor:
+    """The sum of a DTensor's squares over the whole tensor, on every
+    rank: its local shard's sum added over the mesh dimensions that shard
+    it (a partial gradient is reduced first)."""
+    mesh = g.device_mesh
+    if any(isinstance(p, Partial) for p in g.placements):
+        g = g.redistribute(mesh, tuple(Replicate() if isinstance(p, Partial)
+                                       else p for p in g.placements))
+    total = None
+    for part in _slices(g.to_local()):
+        s = part.float().square().sum()
+        total = s if total is None else total + s
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32, device=g.device)
+    pl = tuple(Partial() if isinstance(p, Shard) else Replicate()
+               for p in g.placements)
+    if all(isinstance(p, Replicate) for p in pl):
+        return total
+    return DTensor.from_local(total, mesh, pl, run_check=False).redistribute(
+        mesh, (Replicate(),) * mesh.ndim).to_local()
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in float32, the leaves
     added in JAX's order (the first sum is the start, as ``0 + s`` is in
-    the reference's Python ``sum``: no host tensor goes to the card)."""
+    the reference's Python ``sum``: no host tensor goes to the card).  A
+    DTensor leaf adds its whole tensor's sum (see
+    :func:`_local_square_sum`); the norm is then a plain tensor, the same
+    on every rank."""
     total = None
     for g in tree.leaves(grads):
+        if isinstance(g, DTensor):
+            s = _local_square_sum(g)
+            total = s if total is None else total + s
+            continue
         for part in _slices(g):
             s = part.float().square().sum()
             total = s if total is None else total + s
@@ -127,13 +171,24 @@ def adamw_update(params, grads, state: AdamWState, lr,
     flat_v = tree.leaves(state.nu)
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError("params, grads and moments differ in leaves")
+    # a DTensor gradient laid out as its parameter (a partial one reduced)
+    flat_g = [g.redistribute(p.device_mesh, p.placements)
+              if isinstance(p, DTensor) and g.placements != p.placements
+              else g for p, g in zip(flat_p, flat_g)]
     gnorm = global_norm(flat_g)
     scale = _clip_scale(gnorm, max_grad_norm)
     state.step.add_(1)
-    t = state.step.to(torch.float32)
+    step = state.step
+    t = (step.to_local() if isinstance(step, DTensor) else step).to(
+        torch.float32)
     bc1 = 1 - b1 ** t
     bc2 = 1 - b2 ** t
     for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+        if isinstance(p, DTensor):
+            if not p.placements == m.placements == v.placements:
+                raise ValueError("a DTensor leaf's parameter and moments "
+                                 "differ in placements")
+            p, g, m, v = (x.to_local() for x in (p, g, m, v))
         for ps, gs, ms, vs in zip(_slices(p), _slices(g), _slices(m),
                                   _slices(v)):
             # the reference's expressions, with in-place steps where a

@@ -21,16 +21,92 @@ reference's key, ``dst.astype(jnp.int64) * n + src``, is int32 while JAX's
 x64 mode is off (its default) and wraps once ``dst * n`` reaches 2**31, so
 its order is not sorted by destination there; below that the two orders
 are equal.
+
+On DTensors (a mesh's sharded layout) :func:`take_rows` and
+:func:`segment_sum` keep the work sharded.  A lookup into a table whose
+rows are sharded (``Shard(0)``) is a masked gather from each rank's own
+rows into a result that is partial over those mesh dimensions, reduced
+where the caller asks for a layout (the way DTensor shards
+``aten.embedding``): the table is never gathered whole, only the ids are
+replicated over the row-sharding dimensions.  A table of fewer rows than a
+rank would look up masked is gathered whole first and read locally
+(SchNet's node states).  A segment sum over messages sharded along their rows adds each
+rank's own messages into a full (num_segments, ...) buffer, a result
+partial over the sharding dimensions: the reference's all-reduce that
+GSPMD inserts after its ``segment_sum``, never a replication of the
+messages.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ..distributed.sharding import shard_range, wrap_local
+
+
+def _is_row_shard(p) -> bool:
+    return isinstance(p, Shard) and p.dim == 0
+
+
+def _as_dtensor(x, mesh):
+    if isinstance(x, DTensor):
+        return x
+    return wrap_local(x, mesh, (Replicate(),) * mesh.ndim, x.shape)
+
+
+def _take_rows_sharded(table: DTensor, ids) -> DTensor:
+    """:func:`take_rows` of a DTensor table (see the module's docstring)."""
+    mesh = table.device_mesh
+    ids = _as_dtensor(ids, mesh)
+    rows = table.shape[0]
+    row_bytes = table.numel() // max(rows, 1) * table.element_size()
+    sharded = [_is_row_shard(p) for p in table.placements]
+    # rows a rank would read masked: its ids, replicated over the
+    # row-sharding dimensions
+    looked_up = ids.numel()
+    for i, p in enumerate(ids.placements):
+        if isinstance(p, Shard) and not sharded[i]:
+            looked_up //= mesh.size(i)
+    if rows <= looked_up:
+        want_t = (Replicate(),) * mesh.ndim     # a small table: gather it
+    else:
+        want_t = tuple(p if r else Replicate()
+                       for p, r in zip(table.placements, sharded))
+    if tuple(table.placements) != want_t:
+        table = table.redistribute(mesh, want_t)
+    row = [_is_row_shard(p) for p in want_t]
+    want_i = tuple(Replicate() if r else p
+                   for p, r in zip(ids.placements, row))
+    if tuple(ids.placements) != want_i:
+        ids = ids.redistribute(mesh, want_i)
+    # a rank's rows get the gradient of its own ids: partial over the mesh
+    # dimensions where the ids differ from rank to rank
+    loc = table.to_local(grad_placements=tuple(
+        t if r else (Partial() if isinstance(i, Shard) else Replicate())
+        for t, i, r in zip(want_t, want_i, row)))
+    lo, n = shard_range(rows, mesh, want_t, 0)
+    raw = ids.to_local().long()
+    raw = torch.where(raw < 0, raw + rows, raw)
+    tail = (1,) * (loc.dim() - 1)
+    inside = ((raw >= 0) & (raw < rows)).reshape(*raw.shape, *tail)
+    cid = raw.clamp(0, rows - 1)
+    mine = ((cid >= lo) & (cid < lo + n))
+    out = loc[torch.where(mine, cid - lo, 0)]
+    if any(row):
+        out = torch.where(mine.reshape(*mine.shape, *tail), out, 0)
+    if out.requires_grad:
+        out.register_hook(lambda g: g * inside)
+    out_pl = [Partial() if r else p for p, r in zip(want_i, row)]
+    return wrap_local(out, mesh, out_pl, (*ids.shape, *table.shape[1:]))
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` with JAX's clamped gather: (*ids.shape, D).  An id
-    out of range reads a clamped row and sends it no gradient."""
+    out of range reads a clamped row and sends it no gradient.  A DTensor
+    table is read where its rows lie (see the module's docstring)."""
+    if isinstance(table, DTensor):
+        return _take_rows_sharded(table, ids)
     rows = table.shape[0]
     ids = ids.long()
     ids = torch.where(ids < 0, ids + rows, ids)
@@ -46,11 +122,30 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Sum of ``data``'s rows by segment id into ``num_segments`` rows;
     out-of-range ids are dropped (added into a spare row that is cut off,
-    so nothing waits for the device to count them)."""
+    so nothing waits for the device to count them).  DTensor messages are
+    added where they lie (see the module's docstring)."""
+    if isinstance(data, DTensor):
+        return _segment_sum_sharded(data, segment_ids, num_segments)
     out = torch.zeros((num_segments + 1, *data.shape[1:]), dtype=data.dtype,
                       device=data.device)
     return out.index_add_(0, _spare(segment_ids, num_segments),
                           data)[:num_segments]
+
+
+def _segment_sum_sharded(data: DTensor, segment_ids,
+                         num_segments: int) -> DTensor:
+    """Each rank's own rows of ``data`` summed into a full buffer: partial
+    over the mesh dimensions that shard ``data``'s rows (and over those
+    where ``data`` is itself partial), the ids laid out as the rows."""
+    mesh = data.device_mesh
+    ids = _as_dtensor(segment_ids, mesh)
+    want_i = tuple(Shard(0) if _is_row_shard(p) else Replicate()
+                   for p in data.placements)
+    if tuple(ids.placements) != want_i:
+        ids = ids.redistribute(mesh, want_i)
+    out = segment_sum(data.to_local(), ids.to_local(), num_segments)
+    out_pl = [Partial() if _is_row_shard(p) else p for p in data.placements]
+    return wrap_local(out, mesh, out_pl, (num_segments, *data.shape[1:]))
 
 
 def _spare(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:

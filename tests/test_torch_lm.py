@@ -395,6 +395,5 @@ def test_config_fields_read_as_the_reference():
     tcfg = get_arch("mistral-large-123b").cfg
     jcfg = jax_get_arch("mistral-large-123b").cfg
     names = {f.name for f in fields(tcfg)}
-    assert names == {f.name for f in fields(jcfg)} - {"probe_layers",
-                                                       "probe_unroll"}
+    assert names == {f.name for f in fields(jcfg)}
     assert tcfg.opt_dtype == torch.bfloat16
