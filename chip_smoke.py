@@ -11,6 +11,8 @@
                                            # against another revision's
     python3 chip_smoke.py --tier-only      # the Const ingest and the tier
                                            # phase alone
+    python3 chip_smoke.py --planner-only   # the planner phase alone on
+                                           # a small Const engine
     python3 chip_smoke.py --fleet-only     # the fleet phase alone
     python3 chip_smoke.py --sanitize-only  # the sanitized fleet phase
                                            # (4b) alone
@@ -85,6 +87,26 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      decode launches, and the decode kernel at the frozen image's shapes
      beside its bound (the bounds of every block, the bytes of the
      non-empty ones, the outputs).
+
+     Then the planner phase (:func:`planner_phase`; also alone by
+     ``--planner-only``): (a) on the same engine, before any tier, each
+     mode's Zipf queries timed on the host's clock through ``device``
+     and ``kernel`` at batches of 1, 8 and 32, one warm-up and the median
+     of ``CROSSOVER_RUNS``, and through ``host`` once a query, alone (its
+     row at a batch the mean of the batch's); ``CrossoverTable.from_rows``
+     derives the planner's table from those rows (``[crossover]`` lines:
+     the times, the rows, the thresholds); each batch then goes unforced
+     under ``PlannerConfig(crossover=table)``, where every query must
+     land on the backend the thresholds give, ``fused_query`` must launch
+     once per (mode, k) group sent to ``device`` or ``kernel``, and every
+     answer must be the host's; the engine's planner is put back.  (b)
+     ``Engine(auto_collate_delta_frac=AUTO_FRAC)`` over the first
+     ``AUTO_DOCS`` WSJ1-like documents, a freeze at half, then an
+     unforced batch of 32 after every ``AUTO_CHUNK`` documents: the
+     collations must rise, the delta after each batch must stay within
+     the fraction of the store plus one chunk's new blocks and copied
+     tails, every answer must be the host's and every batch one launch
+     (``[autocollate]`` lines).
 
      Then the tier phase (:func:`tier_phase`) on the same engine: a
      background freeze (``enable_tiering(FreezePolicy(codec="bp128"))``,
@@ -301,8 +323,8 @@ Phases, each printing its own lines; the first failed check exits non-zero:
      flops; a second step is timed by CUDA events.  ``--dryrun-all`` runs
      every cell and probe through the CLI instead of (a) and (b);
   9. Path A, the variable-growth kernel backend: the first
-     ``TRIANGLE_DOCS`` documents of the WSJ1-like stream (cut to 6,144
-     for the tier, fleet, mesh and LM phases) into ``Engine(B=64,
+     ``TRIANGLE_DOCS`` documents of the WSJ1-like stream (cut to 4,096
+     for the tier, fleet, mesh, LM and planner phases) into ``Engine(B=64,
      growth="triangle")`` (paper §5.4, no device image) through
      ``QueryService(max_batch=32, cache_size=0)`` in batches of 256, its
      bytes per posting beside the Const path's at the same document
@@ -336,6 +358,9 @@ have a library call on seeded inputs at the paths' shapes (``topk_score``
 also at 9 and 40 segments); it drives no path and prints no result line.
 ``--tier-only`` builds only ``fused_query``, builds the Const engine as
 phase 3 does (without the split path) and runs the tier phase on it.
+``--planner-only`` builds only ``fused_query``, builds a Const engine as
+phase 3 does (without the split path) of ``PLANNER_DOCS`` documents, or
+``--docs``, and runs the planner phase on it.
 ``--fleet-only`` builds only ``fused_query`` and runs phase 4 alone.
 ``--sanitize-only`` builds only ``fused_query`` and runs phase 4b alone.
 ``--mesh-only`` builds only ``dvbyte_decode``, ingests the Const stream
@@ -363,6 +388,7 @@ Imports nothing of JAX.  Kernels build into ``src/repro_torch/kernels/_build``.
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import os
@@ -384,17 +410,18 @@ REPS = 20                      # timed calls of a plain version or a batch
 LAUNCHES = 20                  # back-to-back kernel launches per timed run
 RUNS = 7                       # timed runs per turn
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-TRIANGLE_DOCS = 6_144          # Path A's stream: WSJ1-like, cut (full:
+TRIANGLE_DOCS = 4_096          # Path A's stream: WSJ1-like, cut (full:
                                # 98,732) to make room for the tier, fleet,
-                               # mesh and LM phases; a batch
+                               # mesh, LM and planner phases; a batch
                                # boundary of the Const path, which records
                                # its bytes/posting there
-FLEET_DOCS = 8_192             # the fleet phase's stream: the first 8,192
-                               # WSJ1-like documents, 4,096 a shard (a cut
+FLEET_DOCS = 6_144             # the fleet phase's stream: the first 6,144
+                               # WSJ1-like documents, 3,072 a shard (a cut
                                # of 98,732 for time: 32,768 took the run
                                # past its time budget; 24,576 until the
                                # sanitized fleet phase 4b, ~75 s, had to be
-                               # paid for, 12,288 until the LM phase)
+                               # paid for, 12,288 until the LM phase, 8,192
+                               # until the planner phase)
 TRAFFIC_EVENTS = 300           # the fleet phase's traffic schedule (cut
                                # from 1,000 for time, then from 500 for
                                # phase 4b)
@@ -1786,11 +1813,13 @@ def main_path(n_docs: int) -> dict:
         fail(f"the Const stream never reached Path A's {TRIANGLE_DOCS} "
              f"documents")
     const_index = (c["bpp_at"], TRIANGLE_DOCS)
+    planner_launches = planner_phase(eng, names, probs)
     tier = tier_phase(eng, svc, corpus, names, groups[:3])
     hybrid = hybrid_phase(eng, corpus, names, probs, rng)
     return {"launches": launches, "max_abs_err": err, "ms": mean(ms),
             "plain_ms": mean(plain_ms), "bound_ms": mean(bound),
             "bound_by": bound_by, "tier_phase_launches": tier["launches"],
+            "planner_phase_launches": planner_launches,
             "library_ms": None, "split": split, "hybrid": hybrid,
             "index": const_index, "e2e": e2e,
             "ingest_rate": st.num_docs / ingest_s, "frozen": c["frozen"]}
@@ -1810,6 +1839,225 @@ def tier_only(n_docs: int) -> None:
     batches = [zipf_queries(rng, c["names"], c["probs"], eng, 32, mode)
                for mode in MODES]
     tier_phase(eng, c["svc"], c["corpus"], c["names"], batches)
+
+
+# --------------------------------------------------------------------------
+# phase 3, continued: the planner's measured crossover and auto-collation
+# --------------------------------------------------------------------------
+
+CROSSOVER_BATCHES = (1, 8, 32)  # (a): batch sizes of the sweep, nested
+CROSSOVER_RUNS = 3              # (a): timed runs a cell after one warm-up
+CROSSOVER_SEED = 3030           # (a): its own queries, so that the later
+                                # phases draw what they drew before it
+AUTO_FRAC = 0.25                # (b): Engine(auto_collate_delta_frac=)
+AUTO_DOCS = 2_048               # (b): WSJ1-like documents, a freeze at half
+AUTO_CHUNK = 128                # (b): documents ingested between batches
+PLANNER_DOCS = 8_192            # --planner-only: the Const stream's cut
+
+
+def timed_batch(eng, qs) -> tuple[float, list]:
+    """µs per query of one ``Engine.execute_many`` over ``qs`` on the
+    host's clock, ending in a synchronize, and its results."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.execute_many(qs)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / len(qs), res
+
+
+def crossover_route(eng, q, batch: int, device_mb, kernel_mb) -> str:
+    """The backend the planner's rules give an unforced query of a swept
+    mode on a device-capable engine without a tier, from the table's
+    thresholds (rule 3) and else the candidate volume (rule 4)."""
+    from repro_torch.engine import PlannerConfig
+    if device_mb is not None and batch >= device_mb:
+        return "device"
+    if kernel_mb is not None and batch >= kernel_mb:
+        return "kernel"
+    fts = [eng._fts[t] for t in map(eng.term_id, q.terms) if t is not None]
+    fts = [f for f in fts if f > 0]
+    if not fts:
+        return "host"
+    volume = min(fts) if q.mode == "conjunctive" else sum(fts)
+    return ("device" if volume >= PlannerConfig().kernel_min_postings
+            else "host")
+
+
+def crossover_phase(eng, names, probs, card: str) -> int:
+    """(a) On a Const engine without a tier: each mode's Zipf queries
+    timed through ``device`` and ``kernel`` at batches of 1, 8 and 32
+    (nested: each the first queries of the next), one warm-up and the
+    median of ``CROSSOVER_RUNS``, and through ``host`` one query at a time,
+    once each: the host backend answers a batch query by query and keeps
+    nothing between them, so its µs per query at a batch is the mean of
+    the batch's queries (70-140 ms a query at the Const path's 73,728
+    documents on an H100 host: a warm-up and three runs of each host
+    batch would take about a minute).  The table
+    ``CrossoverTable.from_rows`` derives from those rows; then each batch
+    goes unforced under ``PlannerConfig(crossover=table)``: every query
+    on the backend the thresholds give, one ``fused_query`` launch per
+    (mode, k) group sent to ``device`` or ``kernel``, every answer the
+    host's.  The engine's planner is put back.  Returns the routed
+    batches' launches."""
+    from repro_torch.engine import (CrossoverTable, Planner, PlannerConfig,
+                                    Query)
+    from repro_torch.kernels.fused_query import kernel as fq_kernel
+    if not eng.device_capable or eng.static_tier() is not None:
+        fail("the crossover phase wants a Const engine without a tier")
+    rng = np.random.default_rng(CROSSOVER_SEED)
+    size = eng.index.num_docs
+    rows, queries, host = [], {}, {}
+    for mode in MODES:
+        queries[mode] = zipf_queries(rng, names, probs, eng,
+                                     max(CROSSOVER_BATCHES), mode)
+        alone = []
+        for q in queries[mode]:
+            hq = Query(terms=q.terms, mode=mode, k=q.k, backend="host")
+            us, res = timed_batch(eng, [hq])
+            alone.append(us)
+            host[hq] = res[0]
+        for backend in ("host", "device", "kernel"):
+            us = []
+            for b in CROSSOVER_BATCHES:
+                if backend == "host":
+                    us.append(float(np.mean(alone[:b])))
+                else:
+                    qs = [Query(terms=q.terms, mode=mode, k=q.k,
+                                backend=backend) for q in queries[mode][:b]]
+                    timed_batch(eng, qs)                 # the warm-up
+                    us.append(float(np.median(
+                        [timed_batch(eng, qs)[0]
+                         for _ in range(CROSSOVER_RUNS)])))
+                rows.append({"workload": mode, "backend": backend,
+                             "size": size, "batch": b,
+                             "us_per_query": us[-1]})
+            how = ("each query once, alone; the mean of the batch's"
+                   if backend == "host" else
+                   f"median of {CROSSOVER_RUNS} after a warm-up")
+            say(f"[crossover] {mode} {backend}: "
+                + ", ".join(f"batch {b} {u:.1f}"
+                            for b, u in zip(CROSSOVER_BATCHES, us))
+                + f" µs/query (host clock, {how}; one collection size, "
+                  f"{size} docs; {card})")
+    table = CrossoverTable.from_rows(rows)
+    say(f"[crossover] rows {json.dumps(rows)}")
+    for mode in MODES:
+        say(f"[crossover] {mode}: device from batch "
+            f"{table.min_batch_for(mode, 'device')}, kernel from batch "
+            f"{table.min_batch_for(mode, 'kernel')} (None: never beat the "
+            f"host; {card})")
+    saved = eng.planner
+    eng.planner = Planner(PlannerConfig(crossover=table))
+    launched = 0
+    for mode in MODES:
+        dev = table.min_batch_for(mode, "device")
+        ker = table.min_batch_for(mode, "kernel")
+        for b in CROSSOVER_BATCHES:
+            qs = [Query(terms=q.terms, mode=mode, k=q.k)
+                  for q in queries[mode][:b]]
+            fq_kernel.launches = 0
+            _, res = timed_batch(eng, qs)
+            got = fq_kernel.launches
+            routes = [r.backend for r in res]
+            want = [crossover_route(eng, q, b, dev, ker) for q in qs]
+            if routes != want:
+                fail(f"crossover {mode} batch {b}: routed {routes}, the "
+                     f"table gives {want}")
+            groups = len({r for r in routes if r in ("device", "kernel")})
+            if got != groups:
+                fail(f"crossover {mode} batch {b}: fused_query launches "
+                     f"{got}, expected {groups}")
+            check_against_host(eng, res, qs, f"crossover {mode} batch {b}",
+                               host)
+            launched += got
+            say(f"[crossover] routed {mode} batch {b}: "
+                f"{dict(collections.Counter(routes))} as the table gives, "
+                f"fused_query launches {got}; answers agree with the host")
+    eng.planner = saved
+    return launched
+
+
+def autocollate_phase(names, probs, card: str) -> int:
+    """(b) ``Engine(auto_collate_delta_frac=AUTO_FRAC)`` on the card over
+    the first ``AUTO_DOCS`` WSJ1-like documents (``names`` and ``probs``:
+    the stream's term table and Zipf weights), a freeze at half, then
+    ``AUTO_CHUNK`` documents and an unforced batch of 32 between each: the
+    collations must rise, the delta after each batch must stay within the
+    fraction of the store plus what one chunk can add (its new blocks and
+    one copied tail per term it touched), every answer must be the host's
+    and every batch one ``fused_query`` launch.  Delta compaction is off,
+    so that only the auto-collation re-freezes.  Returns the launches."""
+    from repro_torch.data.corpus import WSJ1_LIKE, SyntheticCorpus
+    from repro_torch.engine import Engine, Query
+    from repro_torch.kernels.fused_query import kernel as fq_kernel
+    spec = WSJ1_LIKE.scaled(AUTO_DOCS)
+    if len(names) != spec.universe:
+        fail("autocollate: the term table is not the stream's")
+    docs = [[names[i] for i in ids.tolist()]
+            for ids in SyntheticCorpus(spec).doc_term_ids()]
+    eng = Engine(B=64, growth="const", delta_compact_frac=None,
+                 auto_collate_delta_frac=AUTO_FRAC)
+    half = AUTO_DOCS // 2
+    eng.add_documents(docs[:half])
+    eng.collate_now()
+    rng = np.random.default_rng(CROSSOVER_SEED + 1)
+    fq_kernel.launches = 0
+    batches = 0
+    for start in range(half, AUTO_DOCS, AUTO_CHUNK):
+        chunk = docs[start:start + AUTO_CHUNK]
+        before = eng.index.store.nblocks
+        eng.add_documents(chunk)
+        grown = eng.index.store.nblocks - before
+        touched = len({t for d in chunk for t in d})
+        mode = MODES[batches % len(MODES)]
+        qs = zipf_queries(rng, names, probs, eng, 32, mode)
+        _, res = timed_batch(eng, qs)
+        batches += 1
+        if any(r.backend != "device" for r in res):
+            fail("autocollate: a batch of 32 left the device backend")
+        st = eng.stats()
+        delta, total = eng.resident.delta_blocks, eng.index.store.nblocks
+        bound = AUTO_FRAC * total + grown + touched
+        if delta > bound:
+            fail(f"autocollate: delta {delta} blocks after a batch, over "
+                 f"{AUTO_FRAC} of {total} + {grown} new + {touched} tails")
+        # the host's answers straight from its backend: a batch through
+        # the engine would itself re-freeze a delta past the fraction
+        asked = [Query(terms=q.terms, mode=q.mode, k=q.k, backend="host")
+                 for q in qs]
+        check_against_host(eng, res, qs, "autocollate", dict(
+            zip(asked, eng.backends["host"].execute_many(asked))))
+        say(f"[autocollate] {st.num_docs} docs, {mode} batch of 32: "
+            f"collations {st.collations}, delta {delta} / {total} blocks = "
+            f"{delta / total:.4f} (bound {bound:.0f}: {AUTO_FRAC} of the "
+            f"store + {grown} new + {touched} tails); answers agree with "
+            f"the host")
+    st = eng.stats()
+    if st.collations < 2 or st.delta_compactions:
+        fail(f"autocollate: {st.collations} collations (the freeze and "
+             f"{st.collations - 1} re-freezes), {st.delta_compactions} "
+             f"compactions")
+    if fq_kernel.launches != batches:
+        fail(f"autocollate: fused_query launches {fq_kernel.launches}, "
+             f"expected one per batch = {batches}")
+    say(f"[autocollate] {st.collations - 1} re-freezes over {batches} "
+        f"batches; fused_query launches {fq_kernel.launches} ({card})")
+    return fq_kernel.launches
+
+
+def planner_phase(eng, names, probs) -> int:
+    """The planner phase, (a) on ``eng`` and (b) on an engine of its own;
+    prints its seconds and returns its ``fused_query`` launches."""
+    card = card_line()
+    t0 = time.perf_counter()
+    launched = crossover_phase(eng, names, probs, card)
+    t1 = time.perf_counter()
+    launched += autocollate_phase(names, probs, card)
+    t2 = time.perf_counter()
+    say(f"[time] planner phase: (a) crossover {t1 - t0:.3f} s, (b) "
+        f"auto-collation {t2 - t1:.3f} s, {t2 - t0:.3f} s in all ({card})")
+    return launched
 
 
 # --------------------------------------------------------------------------
@@ -4918,8 +5166,10 @@ def dryrun_phase(everything: bool = False) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--docs", type=int, default=CONST_DOCS,
-                    help="documents in the Const path's WSJ1-like stream")
+    ap.add_argument("--docs", type=int, default=None,
+                    help="documents in the Const path's WSJ1-like stream "
+                         f"(default {CONST_DOCS}; {PLANNER_DOCS} with "
+                         "--planner-only)")
     ap.add_argument("--kernels", action="store_true",
                     help="build and check every kernel, time the kernels "
                          "that have a library call on seeded inputs at the "
@@ -4937,6 +5187,12 @@ def main() -> int:
                          "--docs documents and run the tier phase on it "
                          "(freeze, serve, delta, snapshot, restore), and "
                          "stop: no other path is driven")
+    ap.add_argument("--planner-only", action="store_true",
+                    help="build fused_query, ingest the Const stream of "
+                         "--docs documents and run the planner phase on it "
+                         "(the measured crossover, then auto-collation on "
+                         "an engine of its own), and stop: no other path "
+                         "is driven")
     ap.add_argument("--fleet-only", action="store_true",
                     help="build fused_query and run the fleet phase alone "
                          "(a two-shard fleet behind the pipelined service: "
@@ -4987,6 +5243,8 @@ def main() -> int:
                          "where it does not exist), then check it, and "
                          "stop: no path is driven")
     args = ap.parse_args()
+    planner_docs = args.docs or PLANNER_DOCS
+    args.docs = args.docs or CONST_DOCS
     import torch
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -5013,6 +5271,15 @@ def main() -> int:
             fail("jax was imported")
         say(f"[card] {card_line()}")
         say("[done] --tier-only: no other path was driven")
+        return 0
+    if args.planner_only:
+        build.build_all(["fused_query"])
+        c = const_engine(planner_docs, np.random.default_rng(2024))
+        planner_phase(c["eng"], c["names"], c["probs"])
+        if "jax" in sys.modules:
+            fail("jax was imported")
+        say(f"[card] {card_line()}")
+        say("[done] --planner-only: no other path was driven")
         return 0
     if args.fleet_only:
         build.build_all(["fused_query"])
@@ -5153,6 +5420,7 @@ def main() -> int:
         for key in ("retrieval_cand", "off_path", "nonempty_rows",
                     "bound_ms_every_row", "decode_share", "floor_ms",
                     "path_query", "tier_phase_launches",
+                    "planner_phase_launches",
                     "fleet_phase_launches", "sanitize_phase_launches",
                     "mesh_phase_launches"):
             if key in r:

@@ -32,7 +32,9 @@ Tiering and snapshots::
     eng2 = Engine.restore("snaps/")         # device images on the card
 
 A :class:`~repro_torch.engine.planner.Planner` selects the backend per
-query from term statistics and batch size, with a forced-override knob
+query from term statistics and batch size, by static thresholds or a
+measured :class:`~repro_torch.engine.planner.CrossoverTable`
+(``PlannerConfig(crossover=...)``), with a forced-override knob
 (``Engine(force_backend=...)`` or ``Query(backend=...)``).
 """
 
@@ -50,7 +52,7 @@ from .backends import (
 )
 from .device_backend import DeviceBackend
 from .engine import Engine
-from .planner import PlanDecision, Planner, PlannerConfig
+from .planner import CrossoverTable, PlanDecision, Planner, PlannerConfig
 from .types import (
     MODES,
     POSITIONAL_MODES,
@@ -61,8 +63,8 @@ from .types import (
 
 __all__ = [
     "Engine", "Query", "QueryResult", "Planner", "PlannerConfig",
-    "PlanDecision", "HostBackend", "DeviceBackend", "KernelBackend",
-    "TieredBackend", "UnsupportedQueryError",
+    "CrossoverTable", "PlanDecision", "HostBackend", "DeviceBackend",
+    "KernelBackend", "TieredBackend", "UnsupportedQueryError",
     "FreezeManager", "FreezePolicy", "StaticTier", "FreezeCoordinator",
     "CollectionStats", "MODES", "POSITIONAL_MODES",
 ]

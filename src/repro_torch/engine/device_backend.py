@@ -114,6 +114,7 @@ class ResidentImageManager:
                                 if len(self._frozen_nblk) else 1)
         self._baseline = capture_delta_baseline(eng.index, eng.vocab)
         self._builder = DeltaBuilder(eng.index, self._baseline)
+        self._nblk_np = None       # the delta is empty until the next refresh
         self._frozen = None        # stale metadata: rebuild from _frozen_raw
         self._synced_version = -1  # force a refresh before the next query
         self.epoch += 1

@@ -64,6 +64,12 @@ class Engine:
         to adopt an existing one — it must not be shared with other writers).
     planner / force_backend:
         routing configuration; ``force_backend`` pins every query.
+    auto_collate_delta_frac:
+        if set, a batch that finds the device delta (as of its last
+        refresh) larger than this fraction of the store's blocks runs a
+        full collation first — bounding delta size, and so the cost of a
+        device query, without ever collating on the query path for small
+        deltas.
     delta_compact_frac / delta_compact_min_blocks:
         fragmentation-threshold compaction for the device refresh itself
         (see ``device_backend``); None disables.
@@ -89,6 +95,7 @@ class Engine:
                  index: DynamicIndex | None = None,
                  planner: PlannerConfig | None = None,
                  force_backend: str | None = None,
+                 auto_collate_delta_frac: float | None = None,
                  delta_compact_frac: float | None = 0.25,
                  delta_compact_min_blocks: int = 512,
                  device=None, decode_fn=None,
@@ -97,6 +104,7 @@ class Engine:
         self.index = index if index is not None else DynamicIndex(
             B=B, growth=growth, F=F, word_level=word_level)
         self.planner = Planner(planner, force_backend)
+        self.auto_collate_delta_frac = auto_collate_delta_frac
         self.delta_compact_frac = delta_compact_frac
         self.delta_compact_min_blocks = delta_compact_min_blocks
         self.version = 0      # published — bumps per ingested/deleted doc
@@ -432,6 +440,14 @@ class Engine:
         if self.device_capable:
             self.resident.freeze()
 
+    def _maybe_auto_collate(self) -> None:
+        frac = self.auto_collate_delta_frac
+        if frac is None:
+            return
+        total = max(1, self.index.store.nblocks)
+        if self.resident.delta_blocks > frac * total:
+            self.collate_now()
+
     # ------------------------------------------------------------------
     # query execution
     # ------------------------------------------------------------------
@@ -444,6 +460,7 @@ class Engine:
         if not queries:
             return []
         t0 = time.perf_counter()
+        self._maybe_auto_collate()
         plans = []
         for q in queries:
             stats = [TermStats(self._fts[tid], 0)

@@ -49,6 +49,14 @@ def get(name: str) -> KernelSpec:
     return _REGISTRY[name]
 
 
+def supporting(mode: str) -> list[KernelSpec]:
+    """All registered kernels serving engine query ``mode``, after every
+    ops module is loaded."""
+    for name in _OPS_MODULES:
+        get(name)
+    return [s for s in _REGISTRY.values() if mode in s.modes]
+
+
 def default_interpret() -> bool:
     """True when no CUDA device can run the kernels, so a caller must keep
     its tensors on the CPU, where the ops run their plain versions."""

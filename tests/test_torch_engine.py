@@ -9,6 +9,11 @@ backend (rtol 1e-6).  Under deletes the port is held against the JAX host
 backend only: the JAX device path drops post-freeze postings of a term
 whose deletes and adds cancel out (the reference's fault C1), which the
 fixed regression stream below reproduces and the port must not.
+
+With ``auto_collate_delta_frac`` set, both packages must re-freeze at the
+same batches and hold deltas of as many blocks after each; the one
+difference, a freeze that leaves the reference's reported delta stale, is
+pinned on both sides.
 """
 
 import numpy as np
@@ -325,3 +330,105 @@ def test_force_backend_pins_every_query():
                             for i in range(6)])
     assert {r.backend for r in got} == {"host"}
     assert eng.stats().by_backend == {"host": 6}
+
+
+def _auto_collate_stream(chunks=9, size=6, hot=3):
+    """A freeze at 200 documents, then ``chunks`` chunks of ``size``
+    documents and one document of hot terms only, with every third chunk
+    deleting the hot-only document of the chunk before it.  Every document
+    carries the ``hot`` commonest terms and only hot-only documents are
+    deleted, so after a freeze each hot term gains more postings than it
+    ever lost and the other terms lose none: no term's deletes and adds
+    cancel, which keeps the stream clear of the reference's fault C1 (its
+    own regression test above holds the port there)."""
+    vocab, docs = _docs(seed=53, n=200 + chunks * size, V=300)
+    docs = [d + vocab[:hot] for d in docs]
+    ops = [("adds", docs[:100]), ("adds", docs[100:200]), ("freeze",)]
+    n, hot_only = 200, []
+    for c in range(chunks):
+        part = docs[200 + c * size:200 + (c + 1) * size]
+        part = part + [vocab[:1 + c % hot]]
+        ops.append(("adds", part))
+        n += len(part)
+        hot_only.append(n)
+        if c % 3 == 2:
+            ops.append(("delete", hot_only[c - 1]))
+        ops.append(("query", MODES[c % 3]))
+    return vocab, ops
+
+
+@pytest.mark.parametrize("frac", [0.1, 0.25, 0.5])
+def test_auto_collation_matches_jax(frac):
+    """The same ingest, delete and query stream through both packages'
+    ``Engine(auto_collate_delta_frac=frac)``: after every batch the two
+    have collated as often and hold deltas of as many blocks, the port's
+    batch went to the device backend, conjunctive answers are equal and
+    ranked ones within rtol 1e-6 of the JAX device backend."""
+    vocab, ops = _auto_collate_stream()
+    jax_eng = JaxEngine(B=64, growth="const", auto_collate_delta_frac=frac)
+    port = Engine(B=64, growth="const", device="cpu",
+                  auto_collate_delta_frac=frac)
+    assert Engine(device="cpu").auto_collate_delta_frac is None
+    terms_list = _queries(vocab, "bm25", seed=5, n=8)
+    collations = []
+    for op in ops:
+        if op[0] != "query":
+            _replay(jax_eng, [op])
+            _replay(port, [op])
+            continue
+        mode = op[1]
+        got = port.execute_many([Query(terms=t, mode=mode, k=10)
+                                 for t in terms_list])
+        want = jax_eng.execute_many([JaxQuery(terms=t, mode=mode, k=10,
+                                              backend="device")
+                                     for t in terms_list])
+        assert port.stats().collations == jax_eng.stats().collations
+        assert port.resident.delta_blocks == jax_eng.resident.delta_blocks
+        assert all(r.backend == "device" for r in got)
+        for r, w in zip(got, want):
+            _agree(r, w, mode, 1e-6)
+        collations.append(port.stats().collations)
+    assert collations[-1] >= 2        # the freeze and a re-freeze at least
+
+
+@pytest.mark.parametrize("refreeze", ["host_batch", "collate_now"])
+def test_a_refreeze_empties_the_reported_delta(refreeze):
+    """A re-freeze leaves the delta empty.  The reference's
+    ``delta_blocks`` keeps its last refresh's count until a device batch
+    refreshes it, so under auto-collation the batch after a re-freeze that
+    refreshed nothing (a host-only batch that re-froze, or an explicit
+    ``collate_now``) re-freezes again; the port's freeze empties the count
+    and collates once."""
+    vocab, docs = _docs(seed=67, n=200, V=120)
+    jax_eng = JaxEngine(B=64, growth="const", auto_collate_delta_frac=0.25)
+    port = Engine(B=64, growth="const", device="cpu",
+                  auto_collate_delta_frac=0.25)
+    ops = [("adds", docs[:100]), ("freeze",), ("adds", docs[100:170])]
+    _replay(jax_eng, ops)
+    _replay(port, ops)
+    terms_list = _queries(vocab, "bm25", seed=9, n=8)
+
+    def batch(backend):
+        port.execute_many([Query(terms=t, mode="bm25", k=10,
+                                 backend=backend) for t in terms_list])
+        jax_eng.execute_many([JaxQuery(terms=t, mode="bm25", k=10,
+                                       backend=backend)
+                              for t in terms_list])
+
+    batch("device")
+    grown = port.resident.delta_blocks
+    assert grown == jax_eng.resident.delta_blocks
+    assert grown > 0.25 * port.index.store.nblocks
+    assert port.stats().collations == jax_eng.stats().collations == 1
+    if refreeze == "host_batch":
+        batch("host")             # auto-collation re-freezes in both
+    else:
+        port.collate_now()
+        jax_eng.collate_now()
+    assert port.stats().collations == jax_eng.stats().collations == 2
+    assert port.resident.delta_blocks == 0
+    assert jax_eng.resident.delta_blocks == grown       # the quirk
+    batch("device")
+    assert port.stats().collations == 2
+    assert jax_eng.stats().collations == 3               # once more
+    assert port.resident.delta_blocks == jax_eng.resident.delta_blocks == 0
